@@ -1,0 +1,11 @@
+"""PyTorch/CUDA port of commpy_tpu for NVIDIA Hopper GPUs.
+
+The module layout mirrors :mod:`commpy_tpu` so each function has an
+obvious counterpart.  Plain tensor code is PyTorch; the Viterbi forward
+pass and traceback are hand-written CUDA kernels
+(``kernels/csrc/viterbi_acs.cu``) built with ``nvcc`` at first use.
+
+This package never imports ``jax`` or ``commpy_tpu``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,6 @@
+"""Batched link models."""
+from .device_links import DeviceLink, make_conv_awgn_link
+from .wifi80211_link import WIFI_MCS_TABLE, wifi80211_device_link
+
+__all__ = ["DeviceLink", "make_conv_awgn_link", "wifi80211_device_link",
+           "WIFI_MCS_TABLE"]

@@ -1,0 +1,174 @@
+"""Batched end-to-end link pipelines.
+
+Counterpart of the conv-coded part of ``commpy_tpu/models/device_links.py``.
+``make_conv_awgn_link`` returns a :class:`DeviceLink` whose
+``link_step(generator, n_frames, noise_std) -> bit_errors`` simulates a
+batch of frames on one device: random bits -> FEC encode -> map ->
+channel -> demap -> decode -> XOR count.  The random draws and the
+deterministic chain are separate: ``transceive(bits, noise, noise_std)``
+takes the bits and the unit complex noise as inputs, so tests can feed the
+JAX package and the port the same draws; it is ``decode(receive(...))``,
+where ``receive`` ends with the decoder's input.  Each stage runs under a
+``torch.profiler.record_function`` span named ``link.<stage>``, so a
+profile assigns device time by stage.
+
+Conventions follow the reference link stack: SNR_dB = (Eb/N0)_dB +
+10 log10(Rc * Mc); complex AWGN noise ``(re + 1j*im) * noise_std * 0.5``;
+soft Viterbi consumes LLRs with positive => bit 1.  The LDPC, turbo,
+MIMO and OFDM links are not ported yet.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..ops import modem as M
+from ..ops.channel import snr_to_noise_std
+from ..ops.convcode import depuncture_device, encode_scan, puncture_mask
+from ..ops.scramble import descramble, scramble
+from ..ops.trellis import Trellis
+from ..ops.viterbi import viterbi_decode_device
+from ..utils.device import device_constant, on_device, resolve_device
+
+__all__ = ["DeviceLink", "make_conv_awgn_link"]
+
+
+@dataclass
+class DeviceLink:
+    """A batched link simulation on one device.
+
+    link_step : ``(generator, n_frames, noise_std) -> bit errors`` (int32
+        scalar tensor on ``device``); draws its bits and noise from the
+        ``torch.Generator`` it is given.
+    transceive : ``(bits [F, frame_bits] int8, noise [F, n_symbols]
+        complex64, noise_std) -> decoded bits [F, frame_bits] int8``; the
+        deterministic part of ``link_step``.
+    receive : same arguments as ``transceive``; returns the decoder's
+        input (depunctured LLRs, hard bits or reals) ``[F, n_coded]``.
+    decode : ``receive``'s output -> decoded bits ``[F, frame_bits]``.
+    """
+
+    link_step: Callable
+    frame_bits: int
+    noise_std_fn: Callable  # snr_db -> noise_std
+    name: str = "link"
+    extras: dict = field(default_factory=dict)
+    transceive: Optional[Callable] = None
+    n_symbols: int = 0
+    receive: Optional[Callable] = None
+    decode: Optional[Callable] = None
+
+
+def _gen_bits(generator: torch.Generator, n_frames: int, n_bits: int,
+              device) -> torch.Tensor:
+    """Uniform random bits ``[F, n_bits]`` int8."""
+    return torch.randint(0, 2, (n_frames, n_bits), generator=generator,
+                         device=device, dtype=torch.int8)
+
+
+def _frame_crandn(generator: torch.Generator, n_frames: int, n: int,
+                  device) -> torch.Tensor:
+    """Complex normals ``[F, n]`` with unit-variance real and imaginary
+    parts (``re + 1j*im``, as the JAX package draws them)."""
+    z = torch.randn((2, n_frames, n), generator=generator, device=device)
+    return torch.complex(z[0], z[1])
+
+
+def make_conv_awgn_link(
+    *,
+    trellis: Trellis,
+    modulation_m: int = 2,
+    frame_bits: int = 1000,
+    decoding_type: str = "soft",
+    tb_depth: Optional[int] = None,
+    puncture: Optional[list] = None,
+    use_psk: bool = True,
+    scramble_seed: Optional[int] = None,
+    name: str = "conv-awgn",
+    device="cuda",
+) -> DeviceLink:
+    """Conv-coded link over complex AWGN.
+
+    PSK(2) with ``decoding_type='hard'``/``'unquantized'``, or QAM(m) with
+    ``'soft'`` (the 802.11 configuration).  ``puncture`` is a puncturing
+    pattern; ``scramble_seed`` (non-zero 7-bit int) inserts the 802.11
+    frame-synchronous scrambler before the encoder and the descrambler
+    after the decoder.
+    """
+    dev = resolve_device(device)
+    const = (M.psk_constellation(modulation_m) if use_psk
+             else M.qam_constellation(modulation_m))
+    Es = float(np.mean(np.abs(const) ** 2))  # on the host, in float64
+    const = const.astype(np.complex64)
+    bps = int(np.log2(modulation_m))
+    k, n = trellis.k, trellis.n
+    n_coded = frame_bits * n // k
+    if puncture is not None:
+        keep = puncture_mask(puncture, n_coded)
+        keep_idx = device_constant(np.where(keep)[0], dev)
+        n_kept = int(keep.sum())
+        rate = frame_bits / n_kept
+    else:
+        keep = None
+        n_kept = n_coded
+        rate = k / n
+    if n_kept % bps:
+        raise ValueError("frame size must fill whole symbols")
+    if decoding_type == "unquantized" and modulation_m != 2:
+        raise ValueError("unquantized decoding takes BPSK only")
+    n_sym = n_kept // bps
+    if tb_depth is None:
+        tb_depth = min(5 * trellis.total_memory, frame_bits)
+
+    def receive(bits, noise, noise_std):
+        with record_function("link.encode"):
+            tx = (bits if scramble_seed is None
+                  else scramble(bits, scramble_seed, device=dev))
+            coded, _ = encode_scan(tx, trellis, device=dev)  # [F, n_coded]
+            if keep is not None:
+                coded = coded[:, keep_idx]
+        with record_function("link.modulate_channel"):
+            symbols = M.modulate(coded, const, bps, device=dev)  # [F, n_sym]
+            ns = np.float32(noise_std)
+            y = symbols + on_device(noise, dev) * float(ns * np.float32(0.5))
+        with record_function("link.demodulate"):
+            if decoding_type == "soft":
+                rx = M.demodulate_soft(y, const, bps, ns * ns)
+            elif decoding_type == "hard":
+                rx = M.demodulate_hard(y, const, bps).to(torch.float32)
+            else:  # unquantized, BPSK: bit b maps to symbol 1 - 2b
+                rx = -y.real
+            if keep is not None:
+                rx = depuncture_device(rx, keep)
+        return rx
+
+    def decode(rx):
+        with record_function("link.viterbi"):
+            dec = viterbi_decode_device(rx, trellis, tb_depth, decoding_type,
+                                        L=frame_bits, device=dev)
+            if scramble_seed is not None:
+                dec = descramble(dec, scramble_seed, device=dev)
+        return dec
+
+    def transceive(bits, noise, noise_std):
+        return decode(receive(bits, noise, noise_std))
+
+    def link_step(generator, n_frames, noise_std):
+        bits = _gen_bits(generator, n_frames, frame_bits, dev)
+        noise = _frame_crandn(generator, n_frames, n_sym, dev)
+        dec = transceive(bits, noise, noise_std)
+        with record_function("link.count_errors"):
+            return torch.sum(torch.bitwise_xor(dec, bits), dtype=torch.int32)
+
+    def noise_std_fn(snr_db):
+        return snr_to_noise_std(snr_db, code_rate=rate, Es=Es)
+
+    return DeviceLink(link_step, frame_bits, noise_std_fn, name,
+                      {"rate": rate, "Es": Es, "bps": bps,
+                       "trellis": trellis, "decoding_type": decoding_type},
+                      transceive,
+                      n_sym, receive, decode)

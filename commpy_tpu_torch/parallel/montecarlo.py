@@ -1,0 +1,173 @@
+"""Monte-Carlo BER engine on one device.
+
+Counterpart of ``commpy_tpu/parallel/montecarlo.py`` without the device
+mesh.  The reference's serial ``while bit_send < send_max and bit_err <
+err_min`` loop (links.py:313-338) becomes rounds: each round simulates
+``frames_per_round`` frames at every still-active SNR point, and the host
+only takes the stopping decision between rounds.
+
+Randomness: the frames of round r at SNR index i are drawn from a
+``torch.Generator`` on the device seeded from (seed, r, i), so a resumed
+sweep repeats exactly the rounds it would have run.
+"""
+from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+from dataclasses import dataclass
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+
+__all__ = ["MonteCarloResult", "montecarlo_ber", "make_round_fn"]
+
+logger = logging.getLogger("commpy_tpu_torch.montecarlo")
+
+
+@dataclass
+class MonteCarloResult:
+    snrs_db: np.ndarray
+    bers: np.ndarray
+    bit_errors: np.ndarray
+    bits_sent: np.ndarray
+    rounds: int
+
+
+def _round_generator(seed: int, rnd: int, snr_index: int,
+                     device) -> torch.Generator:
+    """The generator of round ``rnd`` at SNR index ``snr_index``."""
+    state = np.random.SeedSequence([seed, rnd, snr_index]).generate_state(
+        1, np.uint64)[0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(state) & ((1 << 63) - 1))
+    return gen
+
+
+def make_round_fn(link_step: Callable, noise_stds: Sequence[float],
+                  frames_per_round: int, device="cuda"):
+    """Build ``round_fn(seed, rnd) -> bit errors [n_snr]`` (NumPy int64).
+
+    ``link_step(generator, n_frames, noise_std) -> bit errors`` (a scalar
+    tensor).  All SNR points of a round are queued on the device and read
+    back with one synchronisation.
+    """
+    dev = resolve_device(device)
+    noise_stds = [float(np.float32(ns)) for ns in noise_stds]
+
+    def round_fn(seed: int, rnd: int) -> np.ndarray:
+        errs = [link_step(_round_generator(seed, rnd, i, dev),
+                          frames_per_round, ns)
+                for i, ns in enumerate(noise_stds)]
+        return torch.stack(errs).cpu().numpy().astype(np.int64)
+
+    round_fn.frames_per_round = frames_per_round
+    round_fn.noise_stds = np.asarray(noise_stds)
+    return round_fn
+
+
+def montecarlo_ber(
+    link_step: Callable,
+    snrs_db,
+    noise_std_fn: Callable,
+    frame_bits: int,
+    seed: int = 0,
+    *,
+    frames_per_round: int,
+    max_rounds: int = 100,
+    err_min: int = 100,
+    send_max: Optional[int] = None,
+    checkpoint_path: Optional[str] = None,
+    round_fn: Optional[Callable] = None,
+    device="cuda",
+) -> MonteCarloResult:
+    """Run the BER sweep with err_min / send_max early stopping.
+
+    An SNR point stops accumulating once it has ``err_min`` bit errors or
+    ``send_max`` sent bits; finished points are frozen (reference
+    links.py:309-341, at round granularity).
+
+    Parameters
+    ----------
+    link_step : ``(generator, n_frames, noise_std) -> bit errors``
+    noise_std_fn : ``snr_db -> noise_std`` (see ops.channel.snr_to_noise_std)
+    frame_bits : message bits per frame (for BER normalisation)
+    seed : integer seed of the sweep's generators
+    checkpoint_path : optional JSON file; tallies and the round counter are
+        written after every round and the sweep resumes from the file if it
+        exists.
+    round_fn : optional prebuilt :func:`make_round_fn` result for this
+        configuration.
+    device : where the frames are simulated (default ``"cuda"``).
+    """
+    snrs_db = np.atleast_1d(np.asarray(snrs_db, float))
+    noise_stds = np.asarray([float(noise_std_fn(s)) for s in snrs_db])
+    if round_fn is None:
+        round_fn = make_round_fn(link_step, noise_stds, frames_per_round,
+                                 device)
+    else:
+        fpr = getattr(round_fn, "frames_per_round", None)
+        if fpr is not None and fpr != frames_per_round:
+            raise ValueError(
+                f"round_fn was built with frames_per_round={fpr}, sweep "
+                f"requested {frames_per_round}")
+        ns = getattr(round_fn, "noise_stds", None)
+        if ns is not None and not np.allclose(ns, noise_stds):
+            raise ValueError(
+                "round_fn was built with different noise_stds than this "
+                "sweep's snrs_db/noise_std_fn produce")
+
+    n_snr = len(snrs_db)
+    bits_per_round = frames_per_round * frame_bits
+    if send_max is None:
+        send_max = bits_per_round * max_rounds
+
+    tot_err = np.zeros(n_snr)
+    tot_bits = np.zeros(n_snr)
+    active = np.ones(n_snr, bool)
+    start_round = 0
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        with open(checkpoint_path) as f:
+            st = json.load(f)
+        if st["snrs_db"] == list(map(float, snrs_db)):
+            tot_err = np.asarray(st["bit_errors"], float)
+            tot_bits = np.asarray(st["bits_sent"], float)
+            # activity is recomputed against THIS run's limits
+            active = (tot_err < err_min) & (tot_bits < send_max)
+            start_round = int(st["round"])
+            logger.info("resumed sweep from %s at round %d",
+                        checkpoint_path, start_round)
+
+    rounds = start_round
+    for r in range(start_round, max_rounds):
+        if not active.any():
+            break
+        t0 = time.perf_counter()
+        errs = round_fn(seed, r)
+        dt = time.perf_counter() - t0
+        tot_err[active] += errs[active]
+        tot_bits[active] += bits_per_round
+        rounds = r + 1
+        active &= (tot_err < err_min) & (tot_bits < send_max)
+        logger.info("round %d: %d/%d SNR points active, %.3g bits/s",
+                    rounds, int(active.sum()), n_snr,
+                    n_snr * bits_per_round / dt)
+        if checkpoint_path:
+            tmp = checkpoint_path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump({
+                    "snrs_db": list(map(float, snrs_db)),
+                    "bit_errors": tot_err.tolist(),
+                    "bits_sent": tot_bits.tolist(),
+                    "active": active.tolist(),
+                    "round": rounds,
+                }, f)
+            os.replace(tmp, checkpoint_path)
+
+    with np.errstate(invalid="ignore"):
+        bers = np.where(tot_bits > 0, tot_err / np.maximum(tot_bits, 1), 0.0)
+    return MonteCarloResult(snrs_db, bers, tot_err, tot_bits, rounds)

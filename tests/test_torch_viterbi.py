@@ -1,0 +1,199 @@
+"""commpy_tpu_torch Viterbi decoder (the module holding kernels K1/K2).
+
+Decoded bits must equal ``commpy_tpu.ops.viterbi.viterbi_decode_device``
+on the CPU (its XLA scan, the f32 ground truth) for every decoding type,
+S = 4, 64 and 256, odd batches, short and long traceback windows, +-inf
+LLRs and the general (k = 2, recursive) path.  The plain versions of the
+ACS and traceback kernels are also held against the JAX Pallas kernels,
+run in interpret mode as tests/test_pallas_kernels.py runs them.
+"""
+import numpy as np
+import pytest
+import torch
+
+from commpy_tpu.kernels import viterbi_acs as JK
+from commpy_tpu.ops.convcode import encode_scan as jencode
+from commpy_tpu.ops.trellis import Trellis as JTrellis
+from commpy_tpu.ops.viterbi import viterbi_decode as jdecode
+from commpy_tpu.ops.viterbi import viterbi_decode_device as jdecode_device
+from commpy_tpu_torch.kernels import viterbi_acs as K
+from commpy_tpu_torch.ops import viterbi as V
+from commpy_tpu_torch.ops.trellis import Trellis
+
+torch.set_num_threads(1)
+
+CODES = {
+    "S4": (np.array([2]), np.array([[5, 7]])),
+    "S64": (np.array([6]), np.array([[0o133, 0o171]])),
+    "S256": (np.array([8]), np.array([[0o561, 0o753]])),
+    "k2": (np.array([2, 1]), np.array([[5, 7, 0], [0, 2, 3]])),
+    "rsc": (np.array([2]), np.array([[1, 7]]), 5, "rsc"),
+}
+
+
+def _received(code, decoding_type, B, L, seed):
+    """Same NumPy draws for both packages: a random message through the
+    code and a noisy channel matching the decoding type."""
+    jt = JTrellis(*CODES[code])
+    rng = np.random.RandomState(seed)
+    msg = rng.randint(0, 2, (B, L))
+    coded = np.asarray(jencode(msg, jt)[0]).astype(np.float64)
+    if decoding_type == "hard":
+        flips = rng.rand(*coded.shape) < 0.05
+        x = np.where(flips, 1 - coded, coded)
+    elif decoding_type == "soft":
+        x = (2 * coded - 1) * 2.0 + rng.randn(*coded.shape) * 1.6
+    else:
+        x = (2 * coded - 1) + rng.randn(*coded.shape) * 0.8
+    return jt, Trellis(*CODES[code]), msg, x.astype(np.float32)
+
+
+# (code, decoding type, B, L, tb_depth)
+CASES = [
+    ("S4", "hard", 5, 120, 15),
+    ("S4", "soft", 5, 120, 15),
+    ("S4", "unquantized", 5, 120, 15),
+    ("S64", "hard", 3, 150, 20),
+    ("S64", "soft", 3, 150, 20),
+    ("S64", "unquantized", 3, 150, 20),
+    ("S64", "soft", 7, 150, 2),
+    ("S64", "soft", 2, 60, 200),  # window longer than the frame
+    ("S256", "soft", 3, 100, 40),
+    ("S256", "hard", 3, 100, 40),
+    ("k2", "hard", 3, 90, 15),
+    ("k2", "soft", 3, 90, 15),
+    ("rsc", "soft", 3, 90, 15),
+]
+
+
+@pytest.mark.parametrize("code,decoding_type,B,L,tb", CASES)
+def test_decode_matches_jax(code, decoding_type, B, L, tb):
+    jt, pt, msg, x = _received(code, decoding_type, B, L, seed=B * L + tb)
+    want = np.asarray(jdecode_device(x, jt, tb, decoding_type))
+    got = V.viterbi_decode_device(torch.as_tensor(x), pt, tb, decoding_type,
+                                  device="cpu")
+    assert got.dtype == torch.int8 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the decoder does real work at these noise levels
+    assert (got.numpy() != msg[:, : got.shape[1]]).mean() < 0.4
+
+
+@pytest.mark.parametrize("code", ["S4", "S64"])
+def test_decode_inf_llrs(code):
+    jt, pt, msg, x = _received(code, "soft", 2, 80, seed=3)
+    x = np.sign(x) * np.inf
+    x[0, :6] = 0.0
+    want = np.asarray(jdecode_device(x, jt, 15, "soft"))
+    got = V.viterbi_decode_device(x, pt, 15, "soft", device="cpu").numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_decode_batch_shape_and_unbatched():
+    jt, pt, msg, x = _received("S4", "soft", 6, 40, seed=5)
+    x3 = x.reshape(2, 3, -1)
+    got = V.viterbi_decode_device(x3, pt, 10, "soft", L=40, device="cpu")
+    assert tuple(got.shape) == (2, 3, 40)
+    np.testing.assert_array_equal(got.reshape(6, 40).numpy(),
+                                  np.asarray(jdecode_device(x, jt, 10,
+                                                            "soft", L=40)))
+    one = V.viterbi_decode_device(x[1], pt, 10, "soft", L=40, device="cpu")
+    np.testing.assert_array_equal(one.numpy(), got.reshape(6, 40)[1].numpy())
+    # the reference-compatible host wrapper and the decoder closure
+    np.testing.assert_array_equal(
+        V.viterbi_decode(x[1], pt, 10, "soft", device="cpu"),
+        jdecode(x[1], jt, 10, "soft"))
+    dec = V.make_viterbi_decoder(pt, 10, "soft", 40, device="cpu")
+    np.testing.assert_array_equal(dec(torch.as_tensor(x)).numpy(),
+                                  got.reshape(6, 40).numpy())
+
+
+def test_plain_kernels_match_pallas_interpret():
+    # B=4, L=300, K=7: the shape of tests/test_pallas_kernels.py
+    jt, pt, msg, x = _received("S64", "soft", 4, 300, seed=0)
+    r = V.received_words(torch.as_tensor(x), pt, "soft", 300)
+    jdec, jbest = JK.acs_forward_pallas(r.numpy(), jt, "soft", layout="btg")
+    C, hc = V._kernel_tables(V._branch_vectors(pt, "soft"), pt, "soft",
+                             torch.device("cpu"))
+    dec, best = K.acs_forward_plain(r, C, hc)
+    np.testing.assert_array_equal(dec.numpy(), np.asarray(jdec))
+    np.testing.assert_array_equal(best.numpy(), np.asarray(jbest))
+    jbits = JK.traceback_pallas(jdec, jbest, 64, 20)
+    bits = K.traceback_plain(dec, best, 64, 20)
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(jbits))
+
+
+def test_plain_kernels_hard_metric_and_packing():
+    # hard metric with its per-branch constant, S=256 (8 words, bit 31 set)
+    jt, pt, msg, x = _received("S256", "hard", 2, 60, seed=9)
+    want = np.asarray(jdecode_device(x, jt, 12, "hard"))
+    r = V.received_words(torch.as_tensor(x), pt, "hard", 60)
+    C, hc = V._kernel_tables(V._branch_vectors(pt, "hard"), pt, "hard",
+                             torch.device("cpu"))
+    dec, best = K.acs_forward(r, C, hc)
+    assert dec.shape == (2, 60 + 8 - 1, 8) and dec.dtype == torch.int32
+    assert bool((dec < 0).any())  # state 31 of some word took branch 1
+    bits = K.traceback(dec, best, 256, 12)
+    np.testing.assert_array_equal(bits[:, :60].numpy(), want)
+
+
+def test_cpu_tensors_take_the_plain_path_without_launching():
+    before = (K.acs_forward.launches, K.traceback.launches)
+    jt, pt, msg, x = _received("S64", "soft", 2, 40, seed=1)
+    a = V.viterbi_decode_device(x, pt, 10, "soft", backend="auto",
+                                device="cpu")
+    b = V.viterbi_decode_device(x, pt, 10, "soft", backend="torch",
+                                device="cpu")
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert (K.acs_forward.launches, K.traceback.launches) == before
+
+
+def test_auto_sends_every_shift_trellis_to_the_kernels(monkeypatch):
+    # S = 2048 is past the CUDA ACS kernel's limit: 'auto' still takes the
+    # kernels' route (their plain versions here; on the card the kernel
+    # raises NotImplementedError), never the general path
+    def general_path(*args):
+        raise AssertionError("the general path was taken")
+
+    monkeypatch.setattr(V, "_viterbi_core", general_path)
+    pt = Trellis(np.array([11]), np.array([[0o4335, 0o5723]]))
+    assert pt.number_states == 2048 and V._is_shift_structured(pt)
+    x = np.random.RandomState(2).randn(2, 2 * 24).astype(np.float32)
+    got = V.viterbi_decode_device(x, pt, 12, "soft", device="cpu")
+    want = V.viterbi_decode_device(x, pt, 12, "soft", backend="torch",
+                                   device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    with pytest.raises(AssertionError, match="general path"):
+        V.viterbi_decode_device(x, Trellis(*CODES["k2"]), 12, "soft",
+                                L=24, device="cpu")
+
+
+def test_shift_structure_detection():
+    assert V._is_shift_structured(Trellis(*CODES["S64"]))
+    # recursive: predecessors are shift-structured but the input bit is
+    # not the state's MSB, so the kernels' traceback would be wrong
+    rsc = Trellis(*CODES["rsc"])
+    assert not V._is_shift_structured(rsc)
+    assert not V._is_shift_structured(Trellis(*CODES["k2"]))
+
+
+def test_argument_errors():
+    pt = Trellis(*CODES["S4"])
+    x = torch.zeros(2, 40)
+    with pytest.raises(ValueError, match="decoding types"):
+        V.viterbi_decode_device(x, pt, 10, "bogus", device="cpu")
+    with pytest.raises(ValueError, match="tb_depth"):
+        V.viterbi_decode_device(x, pt, 1, "soft", device="cpu")
+    with pytest.raises(ValueError, match="backend"):
+        V.viterbi_decode_device(x, pt, 10, "soft", backend="pallas",
+                                device="cpu")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        V.viterbi_decode_device(x, pt, 10, "soft", backend="cuda",
+                                device="cpu")
+    with pytest.raises(ValueError, match="float32"):
+        K.acs_forward(x.reshape(2, 20, 2).double(), torch.zeros(2, 4, 2))
+    with pytest.raises(ValueError, match="power of 2"):
+        K.acs_forward(x.reshape(2, 20, 2), torch.zeros(2, 6, 2))
+    with pytest.raises(ValueError, match="int32"):
+        K.traceback(torch.zeros(2, 20, 1), torch.zeros(2, 20,
+                                                       dtype=torch.int32),
+                    4, 5)
