@@ -16,8 +16,29 @@ Run from the root of a checkout:  python3 chip_smoke.py
    erfc, K=7 soft beating that uncoded curve by more than 10x at 2 dB, and
    ``errs(35 dB) == 0 < errs(5 dB)`` at MCS-4); both kernels' launch
    counters must rise during this phase;
-5. times each kernel and its plain version with CUDA events, the decoder
-   at the bench configuration and the MCS-4 link step.
+5. holds the QC-LDPC kernels against their plain versions: the resident
+   kernel K4 on all twelve 802.11n codes and WiMAX 1440 (lifted to QC
+   form), MSA and SPA, flooding and layered, msa_scale=0.75, B = 3, 37
+   and 512 with clean lanes, +-0.0 LLRs and lanes that converge at
+   different iterations; the streamed layered kernel K5 on the
+   DVB-S2-class (16200, 7200) code with its wrap-edge pos_masks, NR BG1
+   at Z=208 and the 802.11n 648 code, float32 and bfloat16 message
+   stores.  MSA must match bit for bit (decisions and posteriors); SPA
+   must give identical decisions and posteriors within rtol = atol =
+   1e-4.  For MSA at small B the plain versions also run on the host CPU;
+6. Path A: the 802.11n LDPC link (1944, rate 1/2, 16-QAM, MSA 15) at
+   F=512 frames per step at 10 dB through ``montecarlo_ber``, with K4's
+   launch counter rising, and its physics checks (1944 BPSK at Eb/N0
+   2.5 dB with SPA-30 under BER 1e-3, layered-8 errors <= flooding-15
+   errors, ``errs(35 dB) == 0 < errs(5 dB)`` on the 16-QAM link);
+7. Path B: ``dvbs2_decode_device`` on the DVB-S2-class code and the NR
+   BG1 Z=208 code, layered 8, B=512, float32 and bfloat16 stores:
+   noiseless input decodes to itself, noisy input beats the channel's
+   hard decisions, K5's launch counter rises;
+8. times each kernel and its plain version with CUDA events (the Viterbi
+   decoder at the bench configuration and the MCS-4 link step; K4 at
+   B=512 MSA-15 flooding and layered-8; K5 at B=512 layered-8, float32
+   and bfloat16) and the Path A link step, with its profile.
 
 Exits non-zero, with no result line, when there is no CUDA device or the
 port cannot be imported, and on any failed check.  The last line is
@@ -35,7 +56,18 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# that peak counts a fused multiply-add as two operations; the adds,
+# multiplies, compares and selects the bounds count are one instruction
+# each, at half of it.  An SM has 64 int32 lanes against 128 float32 ones.
+F32_INSTR_PER_S = F32_OPS_PER_S / 2
+INT32_OPS_PER_S = F32_OPS_PER_S / 4
 SOURCE = "commpy_tpu_torch/kernels/csrc/viterbi_acs.cu"
+QC_SOURCE = "commpy_tpu_torch/kernels/csrc/qc_bp.cu"
+# float operations per edge and iteration of a min-sum check update with
+# its totals and syndrome: v2c subtract, |x|, two-minimum tracking (2),
+# sign and zero tracking (2), leave-one-out select, scale, offset, clamp,
+# sign product, the total update and the syndrome's XOR
+MSA_OPS_PER_EDGE = 15
 
 
 def fail(msg):
@@ -80,9 +112,9 @@ def k2_bound(B, T, S, tb_depth):
     return nbytes, ops
 
 
-def bound_ms(nbytes, ops):
+def bound_ms(nbytes, ops, ops_per_s=F32_INSTR_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -178,22 +210,24 @@ def _device_us(event, name):
                    getattr(event, f"{name}cuda_time_total", 0)) or 0
 
 
-def profile_link_step(torch, link, gen, noise_std, step_s, steps=2):
+def profile_link_step(torch, link, gen, noise_std, step_s, steps=2,
+                      frames=2048, label="MCS-4"):
     """Device time of each kernel and of each ``link.<stage>`` span over
-    ``steps`` MCS-4 link steps of 2048 frames (torch.profiler), and the
+    ``steps`` link steps of ``frames`` frames (torch.profiler), and the
     device's busy share of the step time measured without the profiler.
 
     A stage has two readings: ``device_span_ms``, the extent of its span
     on the device's timeline (first kernel start to last kernel end, all
     its kernels included), and ``aten_kernels_ms``, the summed time of
     the kernels the profiler ties to PyTorch operators inside it (it does
-    not tie K1 and K2, which are launched through ctypes, to the span)."""
+    not tie the kernels launched through ctypes, K1, K2 and K4, to the
+    span)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            link.link_step(gen, 2048, noise_std)
+            link.link_step(gen, frames, noise_std)
         torch.cuda.synchronize()
     rows, stages = [], {}
     for e in prof.key_averages():
@@ -219,10 +253,235 @@ def profile_link_step(torch, link, gen, noise_std, step_s, steps=2):
                     for row in rows[:6])
     split = ", ".join(f"{k} {v.get('device_span_ms', float('nan')):.3f}"
                       for k, v in stages.items())
-    print(f"MCS-4 link step profile: device busy {busy_ms:.3f} ms of "
+    print(f"{label} link step profile: device busy {busy_ms:.3f} ms of "
           f"{step_s * 1e3:.3f} ms; stages (device span ms): {split}; top "
           f"kernels: {top}", flush=True)
     return out
+
+
+class QCTally:
+    """Kernel-versus-plain comparison counts of one QC-LDPC kernel.
+
+    MSA cases count every decision and every posterior that differs
+    (bit for bit); SPA cases count differing decisions and posteriors
+    outside rtol = atol = 1e-4, and keep the largest relative difference
+    ``|kernel - plain| / (1 + |plain|)``."""
+
+    def __init__(self):
+        self.cases = 0
+        self.compared = 0
+        self.mismatches = 0
+        self.max_abs_err = 0.0
+        self.spa_max_rel = 0.0
+
+    def add(self, got, want, exact):
+        (dg, og), (dw, ow) = got, want
+        dw, ow = dw.to(dg.device), ow.to(og.device)
+        for a, b in ((dg, dw), (og, ow)):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                fail(f"shape/type {tuple(a.shape)} {a.dtype} vs "
+                     f"{tuple(b.shape)} {b.dtype}")
+        self.cases += 1
+        self.compared += dg.numel()
+        diff = (og - ow).abs()
+        if diff.numel():
+            self.max_abs_err = max(self.max_abs_err, float(diff.max()))
+        bad = int((dg != dw).sum())
+        if exact:
+            bad += int((og != ow).sum())
+        else:
+            bad += int((diff > 1e-4 * ow.abs() + 1e-4).sum())
+            if diff.numel():
+                self.spa_max_rel = max(self.spa_max_rel, float(
+                    (diff / (1 + ow.abs())).max()))
+        self.mismatches += bad
+        return bad
+
+
+def bpsk_llr(cw, ebn0_db, rate, rng):
+    """Channel LLRs (positive means bit 0) of BPSK codewords ``cw`` over
+    AWGN at ``ebn0_db`` (a scalar or one value per frame)."""
+    ebn0 = np.asarray(ebn0_db, float).reshape(-1, 1)
+    sigma = np.sqrt(1 / (2 * rate * 10 ** (ebn0 / 10)))
+    x = 1.0 - 2.0 * cw
+    return (2 * (x + sigma * rng.randn(*cw.shape)) / sigma ** 2).astype(
+        np.float32)
+
+
+def qc_case_llr(cw, rate, seed, low_db=0.5):
+    """Kernel input ``[B, n]`` for codewords ``cw``: lane 0 clean
+    (converged at init), lane 1 the codeword in LLRs of +-0.0 (converged
+    at init, decided by the zeros' signs), lane 2 noisy with 16 LLRs of
+    -0.0 and 16 of +0.0, the rest noisy at Eb/N0 spread over
+    ``low_db``-4 dB so that they converge at different iterations or, at
+    the low end, not at all.
+
+    SPA cases start at 2 dB: a frame that never converges amplifies a
+    last-bit difference of tanh from sweep to sweep, so its posteriors
+    test the two tanh implementations, not the kernel."""
+    rng = np.random.RandomState(seed)
+    B, n = cw.shape
+    llr = bpsk_llr(cw, rng.permutation(np.linspace(low_db, 4.0, B)), rate,
+                   rng)
+    llr[0] = (1.0 - 2.0 * cw[0]) * 20
+    if B > 1:
+        llr[1] = np.where(cw[1] == 1, np.float32(-0.0), np.float32(0.0))
+    if B > 2:
+        pos = rng.permutation(n)[:32]
+        llr[2, pos[:16]] = np.float32(-0.0)
+        llr[2, pos[16:]] = np.float32(0.0)
+    return np.clip(llr, -500, 500)
+
+
+def ldpc_codes():
+    """(name, qc params, codeword maker ``(B, rng) -> [B, n]`` int8 or
+    None) of every code the QC kernels are held on."""
+    from commpy_tpu_torch.ops import dvbs2 as D
+    from commpy_tpu_torch.ops import ldpc as L
+    from commpy_tpu_torch.ops import nrldpc as N
+    from commpy_tpu_torch.ops import qcldpc as Q
+
+    def qc_maker(p):
+        enc = Q.qc_encoder(p, "cpu")
+        return lambda B, rng: enc(rng.randint(0, 2, (B, p["k_bits"])).astype(
+            np.int8)).numpy()
+
+    codes = {}
+    for (n, r) in sorted(Q.IEEE80211N_BASE):
+        p = Q.ieee80211n_params(n, r)
+        codes[f"80211n-{n}-{r}"] = (p, qc_maker(p))
+    wimax = L.get_ldpc_code_params(
+        os.path.join(L.DESIGNS, "wimax", "1440.720.txt"))
+    codes["wimax-1440"] = (L._maybe_qc_params(wimax),
+                           lambda B, rng: np.zeros((B, 1440), np.int8))
+    pd = D.dvbs2_qc_params(D.synthetic_address_table(16200, "1/2", seed=0),
+                           16200, "1/2")
+    q, k = pd["dvbs2"]["q"], pd["k_bits"]
+
+    def dvbs2_qc_codewords(B, rng):
+        cw = D.dvbs2_encode_device(rng.randint(0, 2, (B, k)).astype(np.int8),
+                                   pd, device="cpu")
+        # the kernels see parity bits in the QC order (block a, position b)
+        return np.concatenate(
+            [cw[:, :k].numpy(),
+             D._parity_to_qc(cw[:, k:], q, pd["Z"]).numpy()], axis=1)
+
+    codes["dvbs2-16200-1/2"] = (pd, dvbs2_qc_codewords)
+    pn = N.nr_code_params(1, 208)
+    codes["nr-bg1-z208"] = (pn, lambda B, rng: N.nr_encode_device(
+        rng.randint(0, 2, (B, pn["k_bits"])).astype(np.int8), pn,
+        device="cpu").numpy())
+    return codes
+
+
+def qc_compare(torch, tally, kernel, plain, llr, exact, on_cpu, **kw):
+    """Run ``kernel`` on the card and ``plain`` on the card (and on the
+    host when ``on_cpu``) on the same LLRs; returns the kernel's output.
+
+    The host leg is for MSA only: the CPU's float32 tanh differs from the
+    card's in the last bit, and near tanh's saturation that moves an SPA
+    message between ~17 and the +-500 clip.  SPA is held on the card,
+    where the kernel's tanhf and log1pf are PyTorch's own."""
+    got = kernel(llr, **kw)
+    want = plain(llr, **kw)
+    torch.cuda.synchronize()
+    bad = tally.add(got, want, exact)
+    if on_cpu:
+        bad += tally.add((got[0].cpu(), got[1].cpu()), plain(llr.cpu(), **kw),
+                         exact)
+    if bad:
+        case = {k: v for k, v in kw.items() if k not in ("meta", "pos_masks")}
+        fail(f"{kernel.__name__} disagrees with its plain version: {bad} "
+             f"values at B={llr.shape[0]}, n={llr.shape[1]}, {case}")
+    return got
+
+
+def k4_parity(torch, tally, codes):
+    """The resident kernel against its plain version on every 802.11n
+    code and WiMAX 1440."""
+    from commpy_tpu_torch.kernels import qc_bp as Q
+    from commpy_tpu_torch.ops.qcldpc import qc_rows
+
+    dev = torch.device("cuda")
+    variants = [("MSA", "flooding", 1.0), ("MSA", "layered", 1.0),
+                ("SPA", "flooding", 1.0), ("SPA", "layered", 1.0),
+                ("MSA", "flooding", 0.75), ("MSA", "layered", 0.75)]
+    big = {"80211n-1944-1/2": variants, "80211n-648-5/6": variants[:1],
+           "80211n-1296-2/3": variants[1:2], "wimax-1440": variants[:1]}
+    seed = 1000
+    for name, (p, make) in codes.items():
+        if name.startswith(("dvbs2", "nr")):
+            continue
+        meta = (p["Z"], p["Nb"], qc_rows(p))
+        rate = p["k_bits"] / p["n_vnodes"]
+        for B in (3, 37, 512):
+            for alg, sched, sc in (variants if B < 512 else big.get(name,
+                                                                    [])):
+                seed += 1
+                rng = np.random.RandomState(seed)
+                llr = torch.as_tensor(qc_case_llr(
+                    make(B, rng), rate, seed, 0.5 if alg == "MSA" else 2.0),
+                    device=dev)
+                qc_compare(torch, tally, Q.qc_bp_resident,
+                           Q.qc_bp_resident_plain, llr, alg == "MSA",
+                           B <= 64 and alg == "MSA", algorithm=alg,
+                           n_iters=8, meta=meta, schedule=sched,
+                           msa_scale=sc)
+
+
+def k5_parity(torch, tally, codes):
+    """The streamed kernel against its plain version on the DVB-S2-class
+    16200 code (pos_masks), NR BG1 Z=208 and 802.11n 648."""
+    from commpy_tpu_torch.kernels import qc_bp as Q
+    from commpy_tpu_torch.ops.qcldpc import _pos_masks, qc_rows
+
+    dev = torch.device("cuda")
+    variants = [("MSA", "f32", 1.0), ("MSA", "bf16", 1.0),
+                ("SPA", "f32", 1.0), ("SPA", "bf16", 1.0),
+                ("MSA", "f32", 0.75), ("MSA", "bf16", 0.75)]
+    big = {"dvbs2-16200-1/2": [variants[0], variants[1], variants[2]],
+           "nr-bg1-z208": variants[:1], "80211n-648-1/2": variants[1:2]}
+    seed = 2000
+    for name in ("dvbs2-16200-1/2", "nr-bg1-z208", "80211n-648-1/2"):
+        p, make = codes[name]
+        meta = (p["Z"], p["Nb"], qc_rows(p))
+        rate = p["k_bits"] / p["n_vnodes"]
+        for B in (3, 37, 512):
+            for alg, io, sc in (variants if B < 512 else big[name]):
+                seed += 1
+                rng = np.random.RandomState(seed)
+                llr = torch.as_tensor(qc_case_llr(
+                    make(B, rng), rate, seed, 0.5 if alg == "MSA" else 2.0),
+                    device=dev)
+                qc_compare(torch, tally, Q.qc_bp_streamed,
+                           Q.qc_bp_streamed_plain, llr, alg == "MSA",
+                           B <= 3 and alg == "MSA", algorithm=alg,
+                           n_iters=6, meta=meta,
+                           msa_scale=sc, pos_masks=_pos_masks(p), msg_io=io)
+
+
+def qc_bound(B, n, edges, iters, store_bytes=0):
+    """Least time of a QC BP decode: LLRs read once, posteriors (float32)
+    and decisions (int8) written once, against MSA_OPS_PER_EDGE per edge
+    and iteration for ``iters`` (a [B] array: the sweeps each frame
+    needs).  ``store_bytes``, the streamed kernel's message store read and
+    written once per sweep, is reported beside it (``store_bound``)."""
+    nbytes = B * n * (4 + 4 + 1)
+    ops = MSA_OPS_PER_EDGE * edges * int(np.sum(iters))
+    return nbytes, ops, 2 * store_bytes * edges * int(np.sum(iters))
+
+
+def sweeps_needed(torch, params, dec, n_iters):
+    """Sweeps each frame ran, as far as the outputs tell: ``n_iters`` for
+    a frame whose decisions fail the syndrome, 1 for one that passes (it
+    may have stopped sooner, so the bound stays a lower bound)."""
+    from commpy_tpu_torch.kernels.qc_bp import _graph, _syndrome_bad
+    from commpy_tpu_torch.ops.qcldpc import _pos_masks, qc_rows
+
+    g = _graph((params["Z"], params["Nb"], qc_rows(params)),
+               _pos_masks(params))
+    bad = _syndrome_bad(dec, g, dec.device).cpu().numpy()
+    return np.where(bad, n_iters, 1)
 
 
 def main():
@@ -242,6 +501,10 @@ def main():
         from commpy_tpu_torch.ops.viterbi import (received_words,
                                                   viterbi_decode_device)
         from commpy_tpu_torch.parallel import montecarlo_ber
+        from commpy_tpu_torch.kernels import qc_bp as QK
+        from commpy_tpu_torch.models import wifi80211n_ldpc_link
+        from commpy_tpu_torch.ops import dvbs2 as D
+        from commpy_tpu_torch.ops import qcldpc as Q
     except ImportError as e:
         print(f"chip_smoke: the commpy_tpu_torch port is not importable "
               f"here ({e})", file=sys.stderr)
@@ -396,6 +659,115 @@ def main():
         "uncoded_2db": float(uncoded_2db),
         "mcs4_errs_35db": e35, "mcs4_errs_5db": e5}
 
+    # ---- QC-LDPC kernels against their plain versions ------------------
+    t0 = time.perf_counter()
+    codes = ldpc_codes()
+    qc_tallies = {"qc_bp_resident": QCTally(), "qc_bp_streamed": QCTally()}
+    k4_parity(torch, qc_tallies["qc_bp_resident"], codes)
+    k5_parity(torch, qc_tallies["qc_bp_streamed"], codes)
+    for name, tally in qc_tallies.items():
+        print(f"{name}: {tally.mismatches} mismatches in {tally.cases} cases, "
+              f"{tally.compared} decisions and as many posteriors; SPA "
+              f"largest |diff|/(1+|plain|) {tally.spa_max_rel:.3e}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- Path A: the 802.11n LDPC link ---------------------------------
+    ldpc_link = wifi80211n_ldpc_link(1944, 16)
+    QK.qc_bp_resident.launches = 0
+    res_a = montecarlo_ber(ldpc_link.link_step, [10.0],
+                           ldpc_link.noise_std_fn, ldpc_link.frame_bits,
+                           seed=5, frames_per_round=512, max_rounds=3,
+                           err_min=10 ** 9, device="cuda")
+    launches_a = QK.qc_bp_resident.launches
+    print(f"Path A 802.11n LDPC 1944 16-QAM F=512 at 10 dB: {res_a.rounds} "
+          f"steps, BER {res_a.bers[0]:.3e}; qc_bp_resident launches "
+          f"{launches_a}", flush=True)
+    if res_a.rounds != 3 or res_a.bits_sent[0] != 3 * 512 * 972:
+        fail(f"Path A ran {res_a.rounds} rounds")
+    if not np.isfinite(res_a.bers).all() or not res_a.bers[0] < 0.1:
+        fail(f"Path A BER at 10 dB is {res_a.bers[0]}")
+    if launches_a == 0:
+        fail("Path A never launched qc_bp_resident")
+    report["path_a"] = {"bit_errors": res_a.bit_errors.tolist(),
+                        "bits_sent": res_a.bits_sent.tolist(),
+                        "ber": res_a.bers.tolist(), "launches": launches_a}
+    # physics through the kernels, on NumPy-made inputs
+    rng = np.random.RandomState(11)
+    p1944, make1944 = codes["80211n-1944-1/2"]
+    cw = make1944(256, rng)
+    dec, _ = Q.qc_bp_decode_device(bpsk_llr(cw, 2.5, 0.5, rng), p1944, "SPA",
+                                   30)
+    spa_ber = float((dec.cpu().numpy() != cw).mean())
+    p648, make648 = codes["80211n-648-1/2"]
+    cw = make648(256, rng)
+    llr = bpsk_llr(cw, 2.75, 0.5, rng)
+    err_flood = int((Q.qc_bp_decode_device(llr, p648, "MSA", 15)[0].cpu()
+                     .numpy() != cw).sum())
+    err_layer = int((Q.qc_bp_decode_device(llr, p648, "MSA", 8,
+                                           schedule="layered")[0].cpu()
+                     .numpy() != cw).sum())
+    gen.manual_seed(6)
+    e35 = int(ldpc_link.link_step(gen, 256,
+                                  float(ldpc_link.noise_std_fn(35.0))))
+    e5 = int(ldpc_link.link_step(gen, 256, float(ldpc_link.noise_std_fn(5.0))))
+    print(f"802.11n 1944 BPSK 2.5 dB SPA-30 BER {spa_ber:.3e}; 648 at 2.75 dB "
+          f"errors: flooding-15 {err_flood}, layered-8 {err_layer}; 16-QAM "
+          f"link errors {e35} at 35 dB, {e5} at 5 dB", flush=True)
+    if not spa_ber < 1e-3:
+        fail("802.11n 1944 SPA-30 BER at 2.5 dB is not under 1e-3")
+    if not err_layer <= err_flood:
+        fail("layered-8 makes more errors than flooding-15")
+    if not e35 == 0 < e5:
+        fail("802.11n LDPC link fails errs(35 dB) == 0 < errs(5 dB)")
+    report["physics"].update({
+        "ldpc1944_bpsk_2p5db_spa30_ber": spa_ber,
+        "ldpc648_2p75db_errors_flooding15": err_flood,
+        "ldpc648_2p75db_errors_layered8": err_layer,
+        "ldpc_link_errs_35db": e35, "ldpc_link_errs_5db": e5})
+
+    # ---- Path B: dvbs2_decode_device and NR BG1 --------------------------
+    pd = codes["dvbs2-16200-1/2"][0]
+    pn, make_nr = codes["nr-bg1-z208"]
+    rng = np.random.RandomState(12)
+    msg = rng.randint(0, 2, (512, pd["k_bits"])).astype(np.int8)
+    cw_d = D.dvbs2_encode_device(msg, pd).cpu().numpy()
+    cw_n = make_nr(512, rng)
+    inputs = {"dvbs2": (cw_d, bpsk_llr(cw_d, 2.0, 0.5, rng)),
+              "nr": (cw_n, bpsk_llr(cw_n, 2.0, pn["k_bits"] / pn["n_vnodes"],
+                                    rng))}
+    QK.qc_bp_streamed.launches = 0
+    path_b = {}
+    for io in ("f32", "bf16"):
+        for name, (cw, llr) in inputs.items():
+            if name == "dvbs2":
+                def run(x):
+                    return D.dvbs2_decode_device(x, pd, "MSA", 8, msg_io=io)
+            else:
+                def run(x):
+                    return Q.qc_bp_decode_device(x, pn, "MSA", 8,
+                                                 schedule="layered",
+                                                 msg_io=io)
+            clean = run((1.0 - 2.0 * cw).astype(np.float32) * 8)[0]
+            noisy = run(llr)[0]
+            errs = int((noisy.cpu().numpy() != cw).sum())
+            raw = int((np.signbit(llr) != cw).sum())
+            exact = bool((clean.cpu().numpy() == cw).all())
+            path_b[f"{name}_{io}"] = {"noisy_errors": errs,
+                                      "channel_errors": raw,
+                                      "noiseless_exact": exact}
+            if not exact:
+                fail(f"Path B {name} {io}: noiseless input does not decode "
+                     f"to itself")
+            if not errs < raw:
+                fail(f"Path B {name} {io}: {errs} errors after decoding, "
+                     f"{raw} before")
+    launches_b = QK.qc_bp_streamed.launches
+    print(f"Path B B=512 layered-8 MSA at Eb/N0 2 dB: {path_b}; "
+          f"qc_bp_streamed launches {launches_b}", flush=True)
+    if launches_b == 0:
+        fail("Path B never launched qc_bp_streamed")
+    report["path_b"] = dict(path_b, launches=launches_b)
+
     # ---- timing -------------------------------------------------------
     timings = {}
     for shape, r in (("mcs4", r_mcs4), ("bench", r_bench)):
@@ -431,6 +803,62 @@ def main():
     report["mcs4_link_profile"] = profile_link_step(torch, link, gen, ns,
                                                     step_s)
     report["timings"] = timings
+    # K4 and K5 at the JAX bench shapes (benchmarks/bench_all.py): random
+    # LLRs, on which no frame converges
+    rng = np.random.RandomState(13)
+    x4 = torch.as_tensor(np.clip(rng.randn(512, 1944) * 2, -500, 500).astype(
+        np.float32), device=dev)
+    x4l = torch.as_tensor(np.clip(rng.randn(512, 1944) * 2 + 1, -500,
+                                  500).astype(np.float32), device=dev)
+    x5 = torch.as_tensor(np.clip(rng.randn(512, 16200) * 2, -500, 500)
+                         .astype(np.float32), device=dev)
+    m4 = (p1944["Z"], p1944["Nb"], Q.qc_rows(p1944))
+    m5 = (pd["Z"], pd["Nb"], Q.qc_rows(pd))
+    pm5 = Q._pos_masks(pd)
+    qc_runs = {
+        "k4_flooding15": (QK.qc_bp_resident, QK.qc_bp_resident_plain, x4,
+                          p1944, dict(algorithm="MSA", n_iters=15, meta=m4)),
+        "k4_layered8": (QK.qc_bp_resident, QK.qc_bp_resident_plain, x4l,
+                        p1944, dict(algorithm="MSA", n_iters=8, meta=m4,
+                                    schedule="layered")),
+        "k5_f32": (QK.qc_bp_streamed, QK.qc_bp_streamed_plain, x5, pd,
+                   dict(algorithm="MSA", n_iters=8, meta=m5, pos_masks=pm5)),
+        "k5_bf16": (QK.qc_bp_streamed, QK.qc_bp_streamed_plain, x5, pd,
+                    dict(algorithm="MSA", n_iters=8, meta=m5, pos_masks=pm5,
+                         msg_io="bf16")),
+    }
+    for key, (kern, plain, x, prm, kw) in qc_runs.items():
+        dec, _ = kern(x, **kw)
+        iters = sweeps_needed(torch, prm, dec, kw["n_iters"])
+        edges = int(np.sum(np.asarray(prm["block_j"]) >= 0)) * prm["Z"]
+        msg_bytes = 2 if kw.get("msg_io") == "bf16" else 4
+        timings[key] = {
+            "B": x.shape[0], "n": x.shape[1], "n_iters": kw["n_iters"],
+            "frames_converged": int((iters < kw["n_iters"]).sum()),
+            "ms": cuda_ms(torch, lambda: kern(x, **kw), 10),
+            "plain_ms": cuda_ms(torch, lambda: plain(x, **kw), 1, warmup=0),
+            "bound": qc_bound(x.shape[0], x.shape[1], edges, iters,
+                              msg_bytes if kern is QK.qc_bp_streamed else 0),
+        }
+        b = timings[key]
+        print(f"{key}: {b['ms']:.3f} ms (plain {b['plain_ms']:.1f} ms), "
+              f"bound {bound_ms(*b['bound'][:2])[0]:.4f} ms, message store "
+              f"{b['bound'][2] / HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
+    ns_a = float(ldpc_link.noise_std_fn(10.0))
+    gen.manual_seed(7)
+    ldpc_link.link_step(gen, 512, ns_a)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ldpc_link.link_step(gen, 512, ns_a)
+    torch.cuda.synchronize()
+    step_a = (time.perf_counter() - t0) / reps
+    ldpc_bps = 512 * 972 / step_a
+    report["path_a_link_profile"] = profile_link_step(
+        torch, ldpc_link, gen, ns_a, step_a, frames=512,
+        label="802.11n LDPC 1944 16-QAM")
+    report["80211n_ldpc_link_step_s"] = step_a
+    report["80211n_ldpc_link_info_bits_per_s"] = ldpc_bps
     report["decoder_bench_ms"] = dec_ms
     report["decoded_info_bits_per_s"] = decoded_bps
     report["mcs4_link_step_s"] = step_s
@@ -442,8 +870,9 @@ def main():
              "commpy_tpu/kernels/viterbi_acs.py:232"),
             ("traceback", "tb", "commpy_tpu/kernels/viterbi_acs.py:505")):
         m4, bn = timings["mcs4"], timings["bench"]
-        b_ms, b_by = bound_ms(*m4[f"{key}_bound"])
-        bb_ms, _ = bound_ms(*bn[f"{key}_bound"])
+        rate = INT32_OPS_PER_S if key == "tb" else F32_INSTR_PER_S
+        b_ms, b_by = bound_ms(*m4[f"{key}_bound"], rate)
+        bb_ms, _ = bound_ms(*bn[f"{key}_bound"], rate)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": replaces, "launches": main_launches[name],
@@ -457,6 +886,39 @@ def main():
             "bench_ms": bn[f"{key}_ms"], "bench_plain_ms":
                 bn[f"{key}_plain_ms"], "bench_bound_ms": bb_ms,
         })
+    for name, key, replaces, launches, shape in (
+            ("qc_bp_resident", "k4_flooding15",
+             "commpy_tpu/kernels/qc_bp.py:290", launches_a,
+             "802.11n (1944, 972) B=512 MSA flooding-15"),
+            ("qc_bp_streamed", "k5_f32", "commpy_tpu/kernels/qc_bp.py:565",
+             launches_b, "DVB-S2-class (16200, 7200) B=512 MSA layered-8 "
+             "f32 store")):
+        t = timings[key]
+        other = timings["k4_layered8" if key == "k4_flooding15"
+                        else "k5_bf16"]
+        b_ms, b_by = bound_ms(*t["bound"][:2])
+        store = (t["bound"][2] / HBM_BYTES_PER_S * 1e3
+                 if name == "qc_bp_streamed" else None)
+        kernels.append({
+            "name": name, "route": "cuda", "source": QC_SOURCE,
+            "replaces": replaces, "launches": launches,
+            "mismatches": qc_tallies[name].mismatches,
+            "compared": qc_tallies[name].compared,
+            "max_abs_err": qc_tallies[name].max_abs_err,
+            "spa_max_rel_err": qc_tallies[name].spa_max_rel,
+            "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "store_bound_ms": store,
+            "bound_note": "bound_ms counts LLRs in and outputs out; the "
+            + ("c2v messages stay in shared memory" if store is None else
+               "message store is scratch of this design (every frame at "
+               "once), read and written once a sweep: store_bound_ms"),
+            "shape": shape, "frames_converged": t["frames_converged"],
+            "second_ms": other["ms"], "second_plain_ms": other["plain_ms"],
+            "second_bound_ms": bound_ms(*other["bound"][:2])[0],
+            "second_shape": "layered-8" if key == "k4_flooding15"
+            else "bf16 store",
+        })
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     print(json.dumps({
@@ -464,6 +926,9 @@ def main():
         "decoder_config": "K=7 soft, B=2048, L=1024, tb_depth=30",
         "mcs4_link_info_bits_per_s": link_bps,
         "link_config": "802.11 MCS-4, frame_bits=1200, F=2048, 12 dB",
+        "80211n_ldpc_link_info_bits_per_s": ldpc_bps,
+        "ldpc_link_config": "802.11n LDPC (1944, 972), 16-QAM, MSA "
+                            "flooding-15, F=512, 10 dB",
         "card": card, "seconds": report["seconds"]}), flush=True)
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:

@@ -1,20 +1,27 @@
 """Carry state across from the JAX package.
 
-The conv-coded link has no weights: its "parameters" are the code's
-trellis tables and the modem's constellation.  Constellations pass
-through as NumPy arrays.  :func:`trellis_from_tables` rebuilds a port
-:class:`~commpy_tpu_torch.ops.trellis.Trellis` from a dict of NumPy tables
-(for example read off a ``commpy_tpu`` Trellis), checking the inverse
-tables against the forward ones, so a decoder can run on a code whose
-generator description is not at hand.
+The links have no weights: their "parameters" are the codes' tables and
+the modem's constellation.  Constellations pass through as NumPy arrays.
+
+* :func:`trellis_from_tables` rebuilds a port
+  :class:`~commpy_tpu_torch.ops.trellis.Trellis` from a dict of NumPy
+  tables (for example read off a ``commpy_tpu`` Trellis), checking the
+  inverse tables against the forward ones.
+* :func:`qc_params_from_arrays` and :func:`ldpc_params_from_arrays` take
+  a JAX package LDPC params dict (NumPy arrays, tuples, SciPy sparse
+  matrices), drop its private cache keys (``_device_edge_arrays`` holds
+  JAX arrays, ``_qc_lift`` a nested dict) and re-check the structure
+  before the port decodes with it.
 """
 from __future__ import annotations
 
 import numpy as np
+import scipy.sparse as sp
 
 from .ops.trellis import Trellis
 
-__all__ = ["TABLE_KEYS", "trellis_tables", "trellis_from_tables"]
+__all__ = ["TABLE_KEYS", "trellis_tables", "trellis_from_tables",
+           "qc_params_from_arrays", "ldpc_params_from_arrays"]
 
 TABLE_KEYS = ("next_state_table", "output_table", "pred_state_table",
               "pred_input_table", "branch_codewords")
@@ -60,3 +67,136 @@ def trellis_from_tables(d: dict) -> Trellis:
         if not np.array_equal(getattr(t, key), np.asarray(d[key])):
             raise ValueError(f"{key} disagrees with the forward tables")
     return t
+
+
+def _public_copy(d: dict) -> dict:
+    """The dict without private (``_``-prefixed) keys, arrays copied."""
+    out = {}
+    for key, value in d.items():
+        if key.startswith("_"):
+            continue
+        if isinstance(value, np.ndarray):
+            value = value.copy()
+        elif sp.issparse(value):
+            value = value.copy()
+        elif isinstance(value, dict):
+            value = _public_copy(value)
+        out[key] = value
+    return out
+
+
+def qc_params_from_arrays(d: dict) -> dict:
+    """A port QC params dict from a JAX package one (same schema).
+
+    Checks ``Mb``, ``Nb``, ``Z``, ``K``, ``n_vnodes`` and ``k_bits``
+    against ``block_j``/``block_s``, the block tables against
+    ``base_matrix`` where there is one (DVB-S2 params: against the
+    address table, ``pos_masks`` included), and the encoder against H
+    (``encode_matrix`` algebraically; the structured dual-diagonal and
+    NR encoders on a random message).  Raises ``ValueError`` on any
+    disagreement.
+    """
+    from .ops import qcldpc as Q
+
+    q = _public_copy(d)
+    q["block_j"] = np.asarray(q["block_j"], np.int32)
+    q["block_s"] = np.asarray(q["block_s"], np.int32)
+    Mb, K = q["block_j"].shape
+    Z, Nb = int(q["Z"]), int(q["Nb"])
+    if (Mb, K) != (q["Mb"], q["K"]) or q["block_s"].shape != (Mb, K):
+        raise ValueError("Mb/K disagree with block_j/block_s")
+    if q["n_vnodes"] != Nb * Z:
+        raise ValueError(f"n_vnodes {q['n_vnodes']} != Nb*Z {Nb * Z}")
+    if "pos_masks" in q:
+        q["pos_masks"] = tuple((int(i), int(k), tuple(int(p) for p in exc))
+                               for (i, k, exc) in q["pos_masks"])
+    if "dvbs2" in q:
+        from .ops.dvbs2 import dvbs2_qc_params
+
+        t = q["dvbs2"]
+        t["table"] = tuple(tuple(int(x) for x in row) for row in t["table"])
+        ref = dvbs2_qc_params(t["table"], t["n"], t["rate"])
+        for key in ("block_j", "block_s", "pos_masks", "k_bits", "Mb", "Nb"):
+            if not np.array_equal(np.asarray(ref[key], dtype=object),
+                                  np.asarray(q[key], dtype=object)):
+                raise ValueError(f"{key} disagrees with the address table")
+        return q
+    if q.get("base_matrix") is None:
+        raise ValueError("QC params need a base_matrix or a dvbs2 table")
+    q["base_matrix"] = np.asarray(q["base_matrix"], np.int32)
+    ref = Q.qc_code_params(q["base_matrix"], Z, compute_encoder=False)
+    for key in ("block_j", "block_s", "Mb", "Nb", "K", "k_bits"):
+        if not np.array_equal(np.asarray(ref[key]), np.asarray(q[key])):
+            raise ValueError(f"{key} disagrees with base_matrix")
+    H = Q.expand_base_matrix(q["base_matrix"], Z).astype(np.int64)
+    k = q["k_bits"]
+    if "encode_matrix" in q:
+        P = np.asarray(q["encode_matrix"]).astype(np.int64)
+        if P.shape != (H.shape[0], k) or ((H[:, :k] + H[:, k:] @ P)
+                                          % 2).any():
+            raise ValueError("encode_matrix does not satisfy H c = 0")
+        q["encode_matrix"] = P.astype(np.int8)
+    elif q.get("parity_structure") in ("dual_diagonal", "nr_triangular"):
+        msg = np.random.RandomState(0).randint(0, 2, (1, k)).astype(np.int8)
+        if q["parity_structure"] == "dual_diagonal":
+            cw = Q.qc_encode_device(msg, q, device="cpu")
+        else:
+            from .ops.nrldpc import nr_encode_device
+
+            cw = nr_encode_device(msg, q, device="cpu")
+        if ((H @ cw.numpy()[0].astype(np.int64)) % 2).any():
+            raise ValueError(f"the {q['parity_structure']} encoder does "
+                             "not satisfy H c = 0")
+    return q
+
+
+def ldpc_params_from_arrays(d: dict) -> dict:
+    """A port design-file LDPC params dict from a JAX package one.
+
+    Checks that the variable- and check-node adjacency lists describe one
+    edge set with the stated degrees, and, where present, that
+    ``parity_check_matrix`` is that H and ``generator_matrix`` is what
+    :func:`~commpy_tpu_torch.ops.ldpc.build_matrix` makes of it.  Raises
+    ``ValueError`` on any disagreement.
+    """
+    q = _public_copy(d)
+    n_v, n_c = int(q["n_vnodes"]), int(q["n_cnodes"])
+    cd, vd = int(q["max_cnode_deg"]), int(q["max_vnode_deg"])
+    for key in ("cnode_adj_list", "vnode_adj_list", "cnode_vnode_map",
+                "vnode_cnode_map"):
+        q[key] = np.asarray(q[key], np.int32)
+    for key in ("cnode_deg_list", "vnode_deg_list"):
+        q[key] = np.asarray(q[key], np.int32)
+    cadj = q["cnode_adj_list"].reshape(n_c, cd)
+    vadj = q["vnode_adj_list"].reshape(n_v, vd)
+    if not (np.array_equal((cadj >= 0).sum(1), q["cnode_deg_list"])
+            and np.array_equal((vadj >= 0).sum(1), q["vnode_deg_list"])):
+        raise ValueError("adjacency lists disagree with the degree lists")
+    rows = np.repeat(np.arange(n_c), q["cnode_deg_list"])
+    H = np.zeros((n_c, n_v), np.int64)
+    H[rows, cadj[cadj >= 0]] = 1
+    Hv = np.zeros((n_c, n_v), np.int64)
+    Hv[vadj[vadj >= 0], np.repeat(np.arange(n_v), q["vnode_deg_list"])] = 1
+    if not np.array_equal(H, Hv):
+        raise ValueError("vnode and cnode adjacency disagree on the edges")
+    if q.get("parity_check_matrix") is not None:
+        if not np.array_equal(np.asarray(q["parity_check_matrix"]
+                                         .todense()) % 2, H):
+            raise ValueError("parity_check_matrix disagrees with the "
+                             "adjacency lists")
+    if q.get("generator_matrix") is not None:
+        # build_matrix inverts H's last n_c columns over the reals, which
+        # gives a GF(2) encoder only for near-triangular codes: hold the
+        # given matrix to that construction, not to H c = 0
+        from .ops.ldpc import build_matrix
+
+        ref = {key: q[key] for key in ("n_cnodes", "n_vnodes",
+                                       "max_cnode_deg", "cnode_adj_list",
+                                       "cnode_deg_list")}
+        build_matrix(ref)
+        G, G_ref = q["generator_matrix"], ref["generator_matrix"]
+        if G.shape != G_ref.shape or not np.allclose(
+                np.asarray(G.todense()), np.asarray(G_ref.todense())):
+            raise ValueError("generator_matrix disagrees with build_matrix "
+                             "of the adjacency lists")
+    return q

@@ -14,8 +14,9 @@ profile assigns device time by stage.
 
 Conventions follow the reference link stack: SNR_dB = (Eb/N0)_dB +
 10 log10(Rc * Mc); complex AWGN noise ``(re + 1j*im) * noise_std * 0.5``;
-soft Viterbi consumes LLRs with positive => bit 1.  The LDPC, turbo,
-MIMO and OFDM links are not ported yet.
+soft Viterbi consumes LLRs with positive => bit 1; LDPC BP consumes
+``llr = -demodulate_soft(...)``, positive => bit 0 (signbit decisions).
+The turbo, MIMO and OFDM links are not ported yet.
 """
 from __future__ import annotations
 
@@ -29,12 +30,15 @@ from torch.profiler import record_function
 from ..ops import modem as M
 from ..ops.channel import snr_to_noise_std
 from ..ops.convcode import depuncture_device, encode_scan, puncture_mask
+from ..ops.ldpc import build_matrix, ldpc_bp_decode_device, ldpc_encode_device
+from ..ops.qcldpc import qc_bp_decode_device, qc_encoder
 from ..ops.scramble import descramble, scramble
 from ..ops.trellis import Trellis
 from ..ops.viterbi import viterbi_decode_device
 from ..utils.device import device_constant, on_device, resolve_device
 
-__all__ = ["DeviceLink", "make_conv_awgn_link"]
+__all__ = ["DeviceLink", "make_conv_awgn_link", "make_qcldpc_awgn_link",
+           "make_ldpc_rayleigh_link"]
 
 
 @dataclass
@@ -46,7 +50,8 @@ class DeviceLink:
         ``torch.Generator`` it is given.
     transceive : ``(bits [F, frame_bits] int8, noise [F, n_symbols]
         complex64, noise_std) -> decoded bits [F, frame_bits] int8``; the
-        deterministic part of ``link_step``.
+        deterministic part of ``link_step`` (a fading link also takes its
+        channel gains ``h [F, n_symbols]`` complex64).
     receive : same arguments as ``transceive``; returns the decoder's
         input (depunctured LLRs, hard bits or reals) ``[F, n_coded]``.
     decode : ``receive``'s output -> decoded bits ``[F, frame_bits]``.
@@ -172,3 +177,145 @@ def make_conv_awgn_link(
                        "trellis": trellis, "decoding_type": decoding_type},
                       transceive,
                       n_sym, receive, decode)
+
+
+def _ldpc_link_parts(name, dev, receive, decode, frame_bits, n_sym, rate,
+                     Es, extras, fading=False):
+    """The ``DeviceLink`` of an LDPC-coded link from its two stages."""
+
+    def transceive(bits, noise, noise_std, *h):
+        return decode(receive(bits, noise, noise_std, *h))
+
+    def link_step(generator, n_frames, noise_std):
+        bits = _gen_bits(generator, n_frames, frame_bits, dev)
+        noise = _frame_crandn(generator, n_frames, n_sym, dev)
+        h = ((_frame_crandn(generator, n_frames, n_sym, dev)
+              * float(np.sqrt(np.float32(0.5))),) if fading else ())
+        dec = transceive(bits, noise, noise_std, *h)
+        with record_function("link.count_errors"):
+            return torch.sum(torch.bitwise_xor(dec, bits), dtype=torch.int32)
+
+    def noise_std_fn(snr_db):
+        return snr_to_noise_std(snr_db, code_rate=rate, Es=Es)
+
+    return DeviceLink(link_step, frame_bits, noise_std_fn, name,
+                      dict(extras, rate=rate, Es=Es), transceive, n_sym,
+                      receive, decode)
+
+
+def _constellation(modulation_m, use_psk):
+    const = (M.psk_constellation(modulation_m) if use_psk
+             else M.qam_constellation(modulation_m))
+    Es = float(np.mean(np.abs(const) ** 2))  # on the host, in float64
+    return const.astype(np.complex64), Es, int(np.log2(modulation_m))
+
+
+def make_qcldpc_awgn_link(
+    *,
+    qc_params: dict,
+    modulation_m: int = 4,
+    algorithm: str = "MSA",
+    n_iterations: int = 15,
+    msa_scale: float = 1.0,
+    msa_offset: float = 0.0,
+    use_psk: bool = False,
+    name: str = "qcldpc-awgn",
+    device="cuda",
+) -> DeviceLink:
+    """QC-LDPC-coded QAM/PSK link over complex AWGN.
+
+    One frame is one QC codeword, decoded by
+    :func:`~commpy_tpu_torch.ops.qcldpc.qc_bp_decode_device` (flooding,
+    ``backend='auto'``: the resident kernel K4 on the card for every
+    802.11n code).
+    """
+    dev = resolve_device(device)
+    n_v = qc_params["n_vnodes"]
+    frame_bits = qc_params["k_bits"]
+    const, Es, bps = _constellation(modulation_m, use_psk)
+    if n_v % bps:
+        raise ValueError(
+            f"codeword length {n_v} must fill whole {bps}-bit symbols")
+    encode = qc_encoder(qc_params, dev)
+
+    def receive(bits, noise, noise_std):
+        with record_function("link.encode"):
+            coded = encode(on_device(bits, dev))  # [F, n_v]
+        with record_function("link.modulate_channel"):
+            ns = np.float32(noise_std)
+            y = (M.modulate(coded, const, bps, device=dev)
+                 + on_device(noise, dev) * float(ns * np.float32(0.5)))
+        with record_function("link.demodulate"):
+            return -M.demodulate_soft(y, const, bps, ns * ns)
+
+    def decode(llr):
+        with record_function("link.ldpc_decode"):
+            dec, _ = qc_bp_decode_device(llr, qc_params, algorithm,
+                                         n_iterations, msa_scale=msa_scale,
+                                         msa_offset=msa_offset, device=dev)
+            return dec[..., :frame_bits]
+
+    return _ldpc_link_parts(name, dev, receive, decode, frame_bits,
+                            n_v // bps, frame_bits / n_v, Es, {"n": n_v})
+
+
+def make_ldpc_rayleigh_link(
+    *,
+    ldpc_params: dict,
+    modulation_m: int = 4,
+    algorithm: str = "SPA",
+    n_iterations: int = 50,
+    fading: bool = True,
+    name: str = "ldpc-rayleigh",
+    device="cuda",
+) -> DeviceLink:
+    """LDPC-coded QAM link over a Rayleigh-faded (or, with
+    ``fading=False``, a plain) SISO channel.
+
+    One frame is one LDPC codeword; the receiver equalises with perfect
+    CSI, ``z = y / h``, and demaps with the per-symbol noise variance
+    ``noise_var / max(|h|^2, 1e-12)``.  The channel gains are complex
+    normals scaled by sqrt(0.5); ``transceive`` and ``receive`` take them
+    as a fourth argument when ``fading`` is on.  Decoding is
+    :func:`~commpy_tpu_torch.ops.ldpc.ldpc_bp_decode_device`, which lifts
+    QC designs (WiMAX) onto the QC decoder.
+    """
+    dev = resolve_device(device)
+    if ldpc_params.get("generator_matrix") is None:
+        build_matrix(ldpc_params)
+    G = np.asarray(ldpc_params["generator_matrix"].todense()) % 2
+    n_v = ldpc_params["n_vnodes"]
+    frame_bits = n_v - ldpc_params["n_cnodes"]
+    const, Es, bps = _constellation(modulation_m, False)
+    if n_v % bps:
+        raise ValueError(
+            f"codeword length {n_v} must fill whole {bps}-bit symbols")
+    G_dev = torch.as_tensor(G.astype(np.int8), device=dev)
+
+    def receive(bits, noise, noise_std, *h):
+        with record_function("link.encode"):
+            coded = ldpc_encode_device(bits, G_dev, device=dev)  # [F, n_v]
+        with record_function("link.modulate_channel"):
+            symbols = M.modulate(coded, const, bps, device=dev)
+            ns = np.float32(noise_std)
+            gain = on_device(h[0], dev) if fading else torch.ones_like(
+                symbols)
+            y = gain * symbols + on_device(noise, dev) * float(
+                ns * np.float32(0.5))
+        with record_function("link.demodulate"):
+            # perfect-CSI equalisation; effective per-symbol noise variance
+            z = y / gain
+            nv = torch.full((), float(ns * ns), dtype=torch.float32,
+                            device=dev)
+            nv_eff = nv / torch.clamp_min(torch.abs(gain) ** 2, 1e-12)
+            return -M.demodulate_soft(z, const, bps, nv_eff)
+
+    def decode(llr):
+        with record_function("link.ldpc_decode"):
+            dec, _ = ldpc_bp_decode_device(llr, ldpc_params, algorithm,
+                                           n_iterations, device=dev)
+            return dec[..., :frame_bits]
+
+    return _ldpc_link_parts(name, dev, receive, decode, frame_bits,
+                            n_v // bps, frame_bits / n_v, Es, {"n": n_v},
+                            fading=fading)

@@ -2,17 +2,20 @@
 
 Counterpart of ``commpy_tpu/models/wifi80211_link.py``: the K=7 (133,171)
 convolutional code, the standard puncturing patterns, Gray PSK/QAM by MCS,
-complex AWGN, exact-LLR soft demapping and soft Viterbi decoding.  The
-802.11n LDPC link is not ported yet.
+complex AWGN, exact-LLR soft demapping and soft Viterbi decoding; and
+the 802.11n LDPC PHY link (Annex R rate-1/2 code, Gray QAM, min-sum BP).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..ops.trellis import Trellis
-from .device_links import DeviceLink, make_conv_awgn_link
+from ..ops.qcldpc import ieee80211n_params
+from .device_links import (DeviceLink, make_conv_awgn_link,
+                           make_qcldpc_awgn_link)
 
-__all__ = ["wifi80211_device_link", "WIFI_MCS_TABLE"]
+__all__ = ["wifi80211_device_link", "wifi80211n_ldpc_link",
+           "WIFI_MCS_TABLE"]
 
 # mcs -> (constellation size, use_psk, (rate_num, rate_den))
 WIFI_MCS_TABLE = {
@@ -57,5 +60,26 @@ def wifi80211_device_link(mcs: int, frame_bits: int = 1200,
         use_psk=use_psk,
         scramble_seed=scramble_seed,
         name=f"wifi80211-mcs{mcs}",
+        device=device,
+    )
+
+
+def wifi80211n_ldpc_link(n: int = 1944, modulation_m: int = 4,
+                         n_iterations: int = 15, msa_scale: float = 1.0,
+                         msa_offset: float = 0.0,
+                         device="cuda") -> DeviceLink:
+    """802.11n LDPC PHY link: the Annex R rate-1/2 code (n in {648, 1296,
+    1944}) with Gray QAM (BPSK for ``modulation_m=2``), one codeword per
+    frame, min-sum BP with ``n_iterations`` flooding iterations (the
+    resident kernel K4 on the card)."""
+    return make_qcldpc_awgn_link(
+        qc_params=ieee80211n_params(n, "1/2"),
+        modulation_m=modulation_m,
+        algorithm="MSA",
+        n_iterations=n_iterations,
+        msa_scale=msa_scale,
+        msa_offset=msa_offset,
+        use_psk=(modulation_m == 2),
+        name=f"wifi80211n-ldpc{n}-qam{modulation_m}",
         device=device,
     )

@@ -1,2 +1,2 @@
-"""Tensor operations of the conv-coded link: trellis, encoder, modem,
-channel, scrambler and Viterbi decoder."""
+"""Tensor operations: trellis, convolutional encoder, modem, channel,
+scrambler, Viterbi decoder, and the LDPC family (dense, QC, DVB-S2, NR)."""
