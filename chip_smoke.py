@@ -35,10 +35,28 @@ Run from the root of a checkout:  python3 chip_smoke.py
    BG1 Z=208 code, layered 8, B=512, float32 and bfloat16 stores:
    noiseless input decodes to itself, noisy input beats the channel's
    hard decisions, K5's launch counter rises;
-8. times each kernel and its plain version with CUDA events (the Viterbi
+8. holds the BCJR kernel K3 against its plain version, bit for bit (a
+   log-MAP value may differ only within the fallback limit of
+   ``K3Tally``): RSC codes of S = 2, 4, 8 and 16 states and a relabelled
+   8-state code, log-MAP, max-log and linear, the plain, masked and
+   boundary variants, f32 and bf16 io, combined and posterior on and off,
+   T = 1, odd T and R not a multiple of 32 (the plain version also on the
+   host CPU for max-log and linear), and the three bench shapes;
+9. Path C: the rate-1/3 turbo link (LTE's L=6144, 4-state RSC,
+   ``RandInterlv(6144, 0)``, 8 iterations, NII windows (128, 0)) at F=256
+   frames per step at Eb/N0 1.0 dB through ``montecarlo_ber``, with K3's
+   launch counter rising by 16 a step and BER under 1e-2; its physics
+   checks (``errs(35 dB) == 0 < errs(-5 dB)``; at L=6144, B=256, 8
+   iterations whole-frame, ``window=(256, 32)`` and NII each under BER
+   1e-4 at Eb/N0 2.0 dB and over 1e-2 at -1 dB, NII bf16 under 1e-4 at
+   2.0 dB, all with their BER at 1.5 dB reported; max-log with
+   ``ext_scale=0.7`` beating 1.0 at 0 dB);
+10. times each kernel and its plain version with CUDA events (the Viterbi
    decoder at the bench configuration and the MCS-4 link step; K4 at
    B=512 MSA-15 flooding and layered-8; K5 at B=512 layered-8, float32
-   and bfloat16) and the Path A link step, with its profile.
+   and bfloat16; K3 at its three bench shapes), the turbo decoder at the
+   JAX bench's configurations, and the Path A and Path C link steps, with
+   their profiles.
 
 Exits non-zero, with no result line, when there is no CUDA device or the
 port cannot be imported, and on any failed check.  The last line is
@@ -68,6 +86,14 @@ QC_SOURCE = "commpy_tpu_torch/kernels/csrc/qc_bp.cu"
 # sign and zero tracking (2), leave-one-out select, scale, offset, clamp,
 # sign product, the total update and the syndrome's XOR
 MSA_OPS_PER_EDGE = 15
+BCJR_SOURCE = "commpy_tpu_torch/kernels/csrc/bcjr.cu"
+# exp and log1p on the special-function units: 16 per SM per clock, at the
+# 1.98 GHz behind F32_OPS_PER_S (132 SMs x 128 lanes x 2 x 1.98 GHz)
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
+# float operations of one lse2 besides exp and log1p: max, subtract, add
+# (log-MAP); max (max-log); max, subtract, multiply, subtract, max, add
+# (linear)
+LSE2_FLOPS = {"exact": 3, "maxlog": 1, "linear": 5}
 
 
 def fail(msg):
@@ -484,6 +510,180 @@ def sweeps_needed(torch, params, dec, n_iters):
     return np.where(bad, n_iters, 1)
 
 
+def rsc_trellises():
+    """The RSC component codes K3 is held on: S = 2, 4 (the turbo link's),
+    8 (LTE's constraint length) and 16 states, and the 8-state code with
+    its states 1-7 relabelled, a bijective trellis that is not
+    shift-structured."""
+    import copy
+
+    from commpy_tpu_torch.ops.trellis import Trellis
+
+    codes = [(2, Trellis(np.array([1]), np.array([[1, 3]]), 3, "rsc")),
+             (4, Trellis(np.array([2]), np.array([[1, 7]]), 5, "rsc")),
+             (8, Trellis(np.array([3]), np.array([[1, 15]]), 13, "rsc")),
+             (16, Trellis(np.array([4]), np.array([[1, 0o37]]), 0o21, "rsc"))]
+    t = copy.copy(codes[2][1])
+    perm = np.r_[0, 1 + np.random.RandomState(0).permutation(7)]
+    nst = np.empty_like(t.next_state_table)
+    out = np.empty_like(t.output_table)
+    nst[perm] = perm[t.next_state_table]
+    out[perm] = t.output_table
+    t.next_state_table, t.output_table = nst, out
+    t._build_inverse_tables()
+    return codes + [(8, t)]
+
+
+class K3Tally:
+    """Kernel-versus-plain comparison counts of K3.
+
+    Every output value (e, and the carries of the boundary variant) is
+    compared bit for bit.  Max-log and linear values that differ are
+    mismatches.  A log-MAP value that differs is a last-bit difference
+    (``bit_diffs``), and a mismatch only past the fallback limit: another
+    decision (sign) or ``|kernel - plain| > 1e-5 (1 + |plain|)``."""
+
+    def __init__(self):
+        self.cases = 0
+        self.compared = 0
+        self.mismatches = 0
+        self.bit_diffs = 0
+        self.max_abs_err = 0.0
+        self.max_rel_err = 0.0
+
+    def add(self, got, want, exact):
+        bad = 0
+        for g, w in zip(got, want):
+            w = w.to(g.device)
+            if g.shape != w.shape or g.dtype != w.dtype:
+                fail(f"shape/type {tuple(g.shape)} {g.dtype} vs "
+                     f"{tuple(w.shape)} {w.dtype}")
+            diff = (g - w).abs()
+            neq = g != w
+            self.compared += g.numel()
+            self.bit_diffs += int(neq.sum())
+            if exact:
+                neq = ((g > 0) != (w > 0)) | (diff > 1e-5 * (1 + w.abs()))
+            bad += int(neq.sum())
+            if diff.numel():
+                self.max_abs_err = max(self.max_abs_err, float(diff.max()))
+                self.max_rel_err = max(self.max_rel_err,
+                                       float((diff / (1 + w.abs())).max()))
+        self.cases += 1
+        self.mismatches += bad
+        return bad
+
+
+def k3_inputs(torch, S, T, R, variant, seed, dev, halo=4):
+    """Inputs of one K3 case on ``dev``: w-stream-sized streams (randn * 4,
+    as (sy +- pa)/nv at nv = 0.5) and priors (randn * 8); the masked
+    variant gets ``halo`` invalid rows at each end and a random ``first``,
+    the boundary variant random start metrics."""
+    rng = np.random.RandomState(seed)
+    syn, pan = (torch.as_tensor(rng.randn(T, R).astype(np.float32) * 4,
+                                device=dev) for _ in range(2))
+    li = torch.as_tensor(rng.randn(T, R).astype(np.float32) * 8, device=dev)
+    kw = {}
+    if variant == "masked":
+        valid = np.ones((T, R), bool)
+        valid[:min(halo, T // 3)] = False
+        valid[T - min(halo, T // 3):] = False
+        kw = {"valid": torch.as_tensor(valid, device=dev),
+              "first": torch.as_tensor(rng.rand(R) < 0.5, device=dev)}
+    elif variant == "boundary":
+        kw = {"boundary": tuple(torch.as_tensor(
+            rng.randn(S, R).astype(np.float32) * 3, device=dev)
+            for _ in range(2))}
+    return syn, pan, li, kw
+
+
+def k3_compare(torch, tally, trellis, S, T, R, mode, variant, io, combined,
+               posterior, seed, on_cpu):
+    """K3 and its plain version on the card (and, for max-log and linear
+    when ``on_cpu``, the plain version on the host) on the same inputs."""
+    from commpy_tpu_torch.kernels import bcjr as BK
+
+    dev = torch.device("cuda")
+    syn, pan, li, vkw = k3_inputs(torch, S, T, R, variant, seed, dev)
+    kw = dict(vkw, max_log=mode == "maxlog",
+              lse="linear" if mode == "linear" else None, io_dtype=io,
+              combined=combined, posterior=posterior)
+    got = BK.bcjr_appdiff(syn, pan, li, trellis, **kw)
+    want = BK.bcjr_appdiff_plain(syn, pan, li, trellis, **kw)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    bad = tally.add(got, want, mode == "exact")
+    if on_cpu and mode != "exact":
+        cpu = k3_inputs(torch, S, T, R, variant, seed, torch.device("cpu"))
+        want_c = BK.bcjr_appdiff_plain(*cpu[:3], trellis,
+                                       **dict(kw, **cpu[3]))
+        want_c = want_c if isinstance(want_c, tuple) else (want_c,)
+        bad += tally.add(tuple(g.cpu() for g in got), want_c, False)
+    if bad:
+        fail(f"bcjr_appdiff disagrees with its plain version: {bad} values "
+             f"at S={S}, T={T}, R={R}, {mode}, {variant}, io={io}, "
+             f"combined={combined}, posterior={posterior}")
+
+
+K3_BENCH = {  # (T, R, variant) of the three JAX bench decoders' K3 calls
+    "whole_frame": (256, 4096, "plain"),  # L=256, B=4096
+    "warmup_window": (320, 6144, "masked"),  # L=6144, B=256, (256, 32)
+    "nii": (128, 12288, "boundary"),  # L=6144, B=256, (128, 0): Path C
+}
+
+
+def k3_parity(torch, tally, trellises):
+    """K3 against its plain version: every trellis of ``rsc_trellises``
+    under the three lse2 modes and the three variants, f32 and bf16 io,
+    combined and posterior on and off, at small shapes (T = 1, odd T, R
+    not a multiple of 32), then the three bench shapes."""
+    shapes = [(1, 37), (7, 100), (33, 130), (64, 32)]
+    ios = [("f32", False, False), ("bf16", True, False), ("f32", True, True),
+           ("bf16", False, True)]
+    seed = 3000
+    for S, tr in trellises:
+        for mode in ("exact", "maxlog", "linear"):
+            for variant in ("plain", "masked", "boundary"):
+                seed += 1
+                T, R = shapes[seed % 4]
+                io, comb, post = ios[(seed // 4) % 4]
+                k3_compare(torch, tally, tr, S, T, R, mode, variant, io, comb,
+                           post, seed, True)
+    tr4 = trellises[1][1]
+    for i, (T, R, variant) in enumerate(K3_BENCH.values()):
+        for io in ("f32", "bf16"):
+            k3_compare(torch, tally, tr4, 4, T, R, "exact", variant, io, True,
+                       True, 4000 + 2 * i + (io == "bf16"), False)
+
+
+def k3_bound(T, R, S, mode, variant, io_bytes=4):
+    """Least time of one K3 pass: the streams (w1, w2, li) read once and e
+    written once (the masks, and the boundary metrics in and out, too);
+    per lane and step 6S + 9 adds and subtracts (branch metrics with the
+    prior, candidates, APP terms, e) and 4S - 2 lse2 of LSE2_FLOPS float
+    operations each, plus an exp and a log1p each in log-MAP on the
+    special-function units.  Returns (bytes, float operations, special
+    operations, history bytes): this design's alpha history, written and
+    read once, is reported beside it as ``store_bound_ms``."""
+    steps = T * R
+    nbytes = 4 * steps * io_bytes
+    if variant == "masked":
+        nbytes += steps + R
+    if variant == "boundary":
+        nbytes += 4 * S * R * 4
+    n_lse = 4 * S - 2
+    flops = steps * (6 * S + 9 + n_lse * LSE2_FLOPS[mode])
+    sfu = 2 * steps * n_lse if mode == "exact" else 0
+    return nbytes, flops, sfu, 2 * steps * S * 4
+
+
+def k3_bound_ms(nbytes, flops, sfu):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(flops / F32_INSTR_PER_S, sfu / SFU_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def main():
     import torch
 
@@ -505,6 +705,11 @@ def main():
         from commpy_tpu_torch.models import wifi80211n_ldpc_link
         from commpy_tpu_torch.ops import dvbs2 as D
         from commpy_tpu_torch.ops import qcldpc as Q
+        from commpy_tpu_torch.kernels import bcjr as BK
+        from commpy_tpu_torch.models import make_turbo_awgn_link
+        from commpy_tpu_torch.ops.interleave import RandInterlv
+        from commpy_tpu_torch.ops.turbo import (turbo_decode_device,
+                                                turbo_encode_device)
     except ImportError as e:
         print(f"chip_smoke: the commpy_tpu_torch port is not importable "
               f"here ({e})", file=sys.stderr)
@@ -512,6 +717,11 @@ def main():
     from scipy.special import erfc
 
     t_start = time.perf_counter()
+    phase_s = {}
+
+    def lap(name):
+        """Seconds since the previous phase ended, kept under ``name``."""
+        phase_s[name] = time.perf_counter() - t_start - sum(phase_s.values())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -534,6 +744,7 @@ def main():
             print(f"[build {name}]\n{log.read_text()}", file=sys.stderr)
     print(f"built {sorted(paths)} in {report['build_s']:.1f} s", flush=True)
 
+    lap("build")
     # ---- kernels against their plain versions ------------------------
     tallies = {"acs_forward": Tally(), "traceback": Tally()}
     k7 = Trellis(np.array([6]), np.array([[0o133, 0o171]]))
@@ -591,6 +802,7 @@ def main():
         fail(f"decoder: {decoder_mismatch} bits differ between the kernels "
              f"and the plain path")
 
+    lap("viterbi_parity")
     # ---- the main path ------------------------------------------------
     K.acs_forward.launches = 0
     K.traceback.launches = 0
@@ -659,6 +871,7 @@ def main():
         "uncoded_2db": float(uncoded_2db),
         "mcs4_errs_35db": e35, "mcs4_errs_5db": e5}
 
+    lap("main_path_and_physics")
     # ---- QC-LDPC kernels against their plain versions ------------------
     t0 = time.perf_counter()
     codes = ldpc_codes()
@@ -671,6 +884,7 @@ def main():
               f"largest |diff|/(1+|plain|) {tally.spa_max_rel:.3e}; "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    lap("qc_parity")
     # ---- Path A: the 802.11n LDPC link ---------------------------------
     ldpc_link = wifi80211n_ldpc_link(1944, 16)
     QK.qc_bp_resident.launches = 0
@@ -725,6 +939,7 @@ def main():
         "ldpc648_2p75db_errors_layered8": err_layer,
         "ldpc_link_errs_35db": e35, "ldpc_link_errs_5db": e5})
 
+    lap("path_a")
     # ---- Path B: dvbs2_decode_device and NR BG1 --------------------------
     pd = codes["dvbs2-16200-1/2"][0]
     pn, make_nr = codes["nr-bg1-z208"]
@@ -768,6 +983,106 @@ def main():
         fail("Path B never launched qc_bp_streamed")
     report["path_b"] = dict(path_b, launches=launches_b)
 
+    lap("path_b")
+    # ---- K3 against its plain version ----------------------------------
+    t0 = time.perf_counter()
+    k3_tally = K3Tally()
+    trellises = rsc_trellises()
+    k3_parity(torch, k3_tally, trellises)
+    print(f"bcjr_appdiff: {k3_tally.mismatches} mismatches in "
+          f"{k3_tally.cases} cases, {k3_tally.compared} values; "
+          f"{k3_tally.bit_diffs} differ in any bit (largest "
+          f"|diff|/(1+|plain|) {k3_tally.max_rel_err:.3e}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    lap("k3_parity")
+    # ---- Path C: the rate-1/3 turbo link -------------------------------
+    trt = trellises[1][1]
+    p6144 = RandInterlv(6144, 0).p_array
+    turbo = make_turbo_awgn_link(trellis=trt, frame_bits=6144,
+                                 p_array=p6144, n_iterations=8,
+                                 window=(128, 0), window_init="nii")
+    # real noise at rate 1/3: the link's SNR is Eb/N0 + 3.01 dB
+    snr_c = 1.0 + 10 * np.log10(2)
+    BK.bcjr_appdiff.launches = 0
+    res_c = montecarlo_ber(turbo.link_step, [snr_c], turbo.noise_std_fn,
+                           turbo.frame_bits, seed=8, frames_per_round=256,
+                           max_rounds=3, err_min=10 ** 9, device="cuda")
+    launches_c = BK.bcjr_appdiff.launches
+    print(f"Path C turbo L=6144 NII (128, 0) F=256 at Eb/N0 1.0 dB: "
+          f"{res_c.rounds} steps, BER {res_c.bers[0]:.3e} "
+          f"({res_c.bit_errors[0]:.0f} errors); bcjr_appdiff launches "
+          f"{launches_c}", flush=True)
+    if res_c.rounds != 3 or res_c.bits_sent[0] != 3 * 256 * 6144:
+        fail(f"Path C ran {res_c.rounds} rounds")
+    if launches_c != 16 * 3:
+        fail(f"Path C launched bcjr_appdiff {launches_c} times in 3 steps, "
+             f"not 16 a step")
+    if not np.isfinite(res_c.bers).all() or not res_c.bers[0] < 1e-2:
+        fail(f"Path C BER at Eb/N0 1.0 dB is {res_c.bers[0]}")
+    report["path_c"] = {"bit_errors": res_c.bit_errors.tolist(),
+                        "bits_sent": res_c.bits_sent.tolist(),
+                        "ber": res_c.bers.tolist(), "launches": launches_c}
+    # physics through K3, on NumPy-made inputs
+    gen.manual_seed(9)
+    e35 = int(turbo.link_step(gen, 64, float(turbo.noise_std_fn(35.0))))
+    em5 = int(turbo.link_step(gen, 64, float(turbo.noise_std_fn(-5.0))))
+    rng = np.random.RandomState(14)
+    msg_t = torch.as_tensor(rng.randint(0, 2, (256, 6144)).astype(np.int8),
+                            device=dev)
+    tx = 2.0 * torch.stack(turbo_encode_device(msg_t, trt, trt, p6144)).to(
+        torch.float32) - 1.0  # [3, B, L]
+    noise = torch.as_tensor(rng.randn(3, 256, 6144).astype(np.float32),
+                            device=dev)
+
+    def turbo_ber(ebn0_db, msg, x, z, p_array, **kw):
+        nv = np.float32(1 / (2 * (1 / 3) * 10 ** (ebn0_db / 10)))
+        y = x + z * float(np.sqrt(nv))
+        d = turbo_decode_device(y[0], y[1], y[2], trt, nv, 8, p_array, **kw)
+        return float((d != msg).float().mean())
+
+    configs = {"whole_frame": {}, "window_256_32": {"window": (256, 32)},
+               "nii_128": {"window": (128, 0), "window_init": "nii"}}
+    turbo_phys = {}
+    for name, kw in configs.items():
+        turbo_phys[name] = {
+            db: turbo_ber(db, msg_t, tx, noise, p6144, **kw)
+            for db in (2.0, 1.5, -1.0)}
+    turbo_phys["nii_128_bf16"] = {db: turbo_ber(
+        db, msg_t, tx, noise, p6144, kernel_io="bf16", **configs["nii_128"])
+        for db in (2.0, 1.5)}
+    p512 = RandInterlv(512, 0).p_array
+    msg_s = torch.as_tensor(rng.randint(0, 2, (64, 512)).astype(np.int8),
+                            device=dev)
+    tx_s = 2.0 * torch.stack(turbo_encode_device(msg_s, trt, trt, p512)).to(
+        torch.float32) - 1.0
+    noise_s = torch.as_tensor(rng.randn(3, 64, 512).astype(np.float32),
+                              device=dev)
+    maxlog = {es: turbo_ber(0.0, msg_s, tx_s, noise_s, p512,
+                            algorithm="max-log", ext_scale=es)
+              for es in (1.0, 0.7)}
+    print(f"turbo link errors {e35} at 35 dB, {em5} at -5 dB; L=6144 B=256 "
+          f"8 it BER by Eb/N0 (dB): {turbo_phys}; L=512 B=64 max-log at 0 dB "
+          f"BER by ext_scale {maxlog}", flush=True)
+    if not e35 == 0 < em5:
+        fail("turbo link fails errs(35 dB) == 0 < errs(-5 dB)")
+    # this 4-state code reaches BER 1e-4 near Eb/N0 1.5 dB at L=6144 (the
+    # JAX package decodes the same frames to the same bits), so the
+    # waterfall check is made at 2.0 dB and 1.5 dB is reported beside it
+    for name, bers in turbo_phys.items():
+        if not bers[2.0] < 1e-4:
+            fail(f"turbo {name} BER at Eb/N0 2.0 dB is {bers[2.0]}")
+        if -1.0 in bers and not bers[-1.0] > 1e-2:
+            fail(f"turbo {name} BER at Eb/N0 -1 dB is {bers[-1.0]}")
+    if not maxlog[0.7] < maxlog[1.0]:
+        fail("max-log with ext_scale 0.7 does not beat 1.0 at 0 dB")
+    report["physics"].update({
+        "turbo_link_errs_35db": e35, "turbo_link_errs_m5db": em5,
+        "turbo_l6144_ber": {k: {str(db): b for db, b in v.items()}
+                            for k, v in turbo_phys.items()},
+        "turbo_l512_maxlog_0db_ber": {str(k): v for k, v in maxlog.items()}})
+
+    lap("path_c_and_physics")
     # ---- timing -------------------------------------------------------
     timings = {}
     for shape, r in (("mcs4", r_mcs4), ("bench", r_bench)):
@@ -859,6 +1174,64 @@ def main():
         label="802.11n LDPC 1944 16-QAM")
     report["80211n_ldpc_link_step_s"] = step_a
     report["80211n_ldpc_link_info_bits_per_s"] = ldpc_bps
+    # K3 at the three bench shapes, as the turbo loop calls it (combined
+    # w-streams, posterior out, log-MAP, f32)
+    for key, (T, R, variant) in K3_BENCH.items():
+        syn, pan, li, vkw = k3_inputs(torch, 4, T, R, variant, 5000, dev,
+                                      halo=32)
+        kw = dict(vkw, combined=True, posterior=True)
+        timings[f"k3_{key}"] = {
+            "T": T, "R": R, "variant": variant,
+            "ms": cuda_ms(torch, lambda: BK.bcjr_appdiff(
+                syn, pan, li, trt, **kw), 10),
+            "plain_ms": cuda_ms(torch, lambda: BK.bcjr_appdiff_plain(
+                syn, pan, li, trt, **kw), 1, warmup=0),
+            "bound": k3_bound(T, R, 4, "exact", variant),
+        }
+        t = timings[f"k3_{key}"]
+        b_ms, b_by = k3_bound_ms(*t["bound"][:3])
+        print(f"k3_{key} T={T} R={R}: {t['ms']:.3f} ms (plain "
+              f"{t['plain_ms']:.1f} ms), bound {b_ms:.4f} ms by {b_by}, "
+              f"history {t['bound'][3] / HBM_BYTES_PER_S * 1e3:.4f} ms",
+              flush=True)
+    # the turbo decoder at the JAX bench's configurations
+    # (benchmarks/bench_all.py:135-177): randn frames, nv 0.5, 8 iterations
+    rng = np.random.RandomState(15)
+    x256 = torch.as_tensor(rng.randn(4096, 256).astype(np.float32),
+                           device=dev)
+    x6144 = torch.as_tensor(rng.randn(256, 6144).astype(np.float32),
+                            device=dev)
+    p256 = RandInterlv(256, 0).p_array
+    decoders = {
+        "whole_frame_l256_b4096": (x256, p256, {}),
+        "window_256_32_l6144_b256": (x6144, p6144, {"window": (256, 32)}),
+        "nii_128_l6144_b256_f32": (x6144, p6144, configs["nii_128"]),
+        "nii_128_l6144_b256_bf16": (x6144, p6144, dict(configs["nii_128"],
+                                                       kernel_io="bf16")),
+    }
+    turbo_rates = {}
+    for key, (x, p_arr, kw) in decoders.items():
+        ms = cuda_ms(torch, lambda: turbo_decode_device(
+            x, x, x, trt, 0.5, 8, p_arr, **kw), 3)
+        turbo_rates[key] = x.numel() / (ms * 1e-3)
+        print(f"turbo decoder {key}: {ms:.3f} ms, "
+              f"{turbo_rates[key]:.4g} info bits/s", flush=True)
+    ns_c = float(turbo.noise_std_fn(snr_c))
+    gen.manual_seed(10)
+    turbo.link_step(gen, 256, ns_c)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        turbo.link_step(gen, 256, ns_c)
+    torch.cuda.synchronize()
+    step_c = (time.perf_counter() - t0) / 3
+    turbo_bps = 256 * 6144 / step_c
+    report["path_c_link_profile"] = profile_link_step(
+        torch, turbo, gen, ns_c, step_c, frames=256,
+        label="turbo L=6144 NII (128, 0)")
+    report["turbo_link_step_s"] = step_c
+    report["turbo_link_info_bits_per_s"] = turbo_bps
+    report["turbo_decoder_info_bits_per_s"] = turbo_rates
     report["decoder_bench_ms"] = dec_ms
     report["decoded_info_bits_per_s"] = decoded_bps
     report["mcs4_link_step_s"] = step_s
@@ -919,7 +1292,30 @@ def main():
             "second_shape": "layered-8" if key == "k4_flooding15"
             else "bf16 store",
         })
+    t = timings["k3_nii"]
+    b_ms, b_by = k3_bound_ms(*t["bound"][:3])
+    extra = {}
+    for key in ("whole_frame", "warmup_window"):
+        o = timings[f"k3_{key}"]
+        extra.update({f"{key}_ms": o["ms"], f"{key}_plain_ms": o["plain_ms"],
+                      f"{key}_bound_ms": k3_bound_ms(*o["bound"][:3])[0],
+                      f"{key}_shape": f"T={o['T']} R={o['R']} {o['variant']}"})
+    kernels.append(dict({
+        "name": "bcjr_appdiff", "route": "cuda", "source": BCJR_SOURCE,
+        "replaces": "commpy_tpu/kernels/bcjr.py:296", "launches": launches_c,
+        "mismatches": k3_tally.mismatches, "compared": k3_tally.compared,
+        "bit_diffs": k3_tally.bit_diffs, "max_abs_err": k3_tally.max_abs_err,
+        "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "store_bound_ms": t["bound"][3] / HBM_BYTES_PER_S * 1e3,
+        "bound_note": "bound_ms counts the streams in and e out once; the "
+        "alpha history is scratch of this design, written and read once: "
+        "store_bound_ms",
+        "shape": "T=128 R=12288 S=4 boundary, log-MAP f32 (Path C: L=6144, "
+                 "F=256, NII (128, 0))"}, **extra))
     report["kernels"] = kernels
+    lap("timing")
+    report["phase_s"] = phase_s
     report["seconds"] = time.perf_counter() - t_start
     print(json.dumps({
         "decoded_info_bits_per_s": decoded_bps,
@@ -929,7 +1325,14 @@ def main():
         "80211n_ldpc_link_info_bits_per_s": ldpc_bps,
         "ldpc_link_config": "802.11n LDPC (1944, 972), 16-QAM, MSA "
                             "flooding-15, F=512, 10 dB",
-        "card": card, "seconds": report["seconds"]}), flush=True)
+        "turbo_decoder_info_bits_per_s": turbo_rates,
+        "turbo_decoder_config": "4-state RSC (1, 7/5), log-MAP, 8 "
+                                "iterations, randn frames, nv 0.5",
+        "turbo_link_info_bits_per_s": turbo_bps,
+        "turbo_link_config": "rate 1/3, L=6144, RandInterlv(6144, 0), NII "
+                             "(128, 0), F=256, Eb/N0 1.0 dB",
+        "card": card, "seconds": report["seconds"], "phase_s": phase_s}),
+        flush=True)
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -12,6 +12,9 @@ the modem's constellation.  Constellations pass through as NumPy arrays.
   matrices), drop its private cache keys (``_device_edge_arrays`` holds
   JAX arrays, ``_qc_lift`` a nested dict) and re-check the structure
   before the port decodes with it.
+* :func:`turbo_params_from_arrays` takes a turbo code's component
+  trellis tables and interleaver permutation (``p_array``); those two are
+  the code's whole state.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ import scipy.sparse as sp
 from .ops.trellis import Trellis
 
 __all__ = ["TABLE_KEYS", "trellis_tables", "trellis_from_tables",
-           "qc_params_from_arrays", "ldpc_params_from_arrays"]
+           "qc_params_from_arrays", "ldpc_params_from_arrays",
+           "turbo_params_from_arrays"]
 
 TABLE_KEYS = ("next_state_table", "output_table", "pred_state_table",
               "pred_input_table", "branch_codewords")
@@ -200,3 +204,19 @@ def ldpc_params_from_arrays(d: dict) -> dict:
             raise ValueError("generator_matrix disagrees with build_matrix "
                              "of the adjacency lists")
     return q
+
+
+def turbo_params_from_arrays(d: dict):
+    """A port turbo code ``(Trellis, p_array)`` from NumPy arrays.
+
+    ``d`` holds the component trellis as :func:`trellis_tables` gives it
+    (read off a ``commpy_tpu`` Trellis) and ``p_array``, the interleaver
+    permutation, which must be a permutation of ``range(L)``.  Raises
+    ``ValueError`` otherwise.
+    """
+    trellis = trellis_from_tables(d)
+    p = np.asarray(d["p_array"])
+    if p.ndim != 1 or not np.issubdtype(p.dtype, np.integer) or not \
+            np.array_equal(np.sort(p), np.arange(p.size)):
+        raise ValueError("p_array is not a permutation of range(L)")
+    return trellis, p.astype(np.int64)

@@ -1,0 +1,336 @@
+"""Fused BCJR pass (K3): forward recursion, backward recursion and APP.
+
+``bcjr_appdiff`` replaces ``commpy_tpu/kernels/bcjr.py:bcjr_appdiff_pallas``.
+One call runs one constituent MAP pass of the turbo loop over ``[T, R]``
+lanes, batch last (a lane is a frame, or a window of one): the forward
+recursion stores its pre-update state metrics, and the backward recursion
+emits the a-posteriori log-ratio ``app1 - app0`` at each step.  On a CUDA
+tensor the wrapper launches the hand-written kernel
+(``csrc/bcjr.cu``, built at first use) on the current stream, or raises;
+on a CPU tensor it runs :func:`bcjr_appdiff_plain`, which has the same
+inputs and outputs and follows the Pallas body's float operations in
+order.  That plain version is what the kernel is held to, bit for bit.
+
+The arithmetic is the Pallas kernel's:
+
+* w-streams ``w1 = (sy + pa)/nv`` and ``w2 = (sy - pa)/nv``; the branch
+  into state s under input u has metric ``sign[u][s] * w_{which[u][s]}``
+  and the u=1 branches add the prior ``li`` (``_w_tables``);
+* forward: ``alpha`` starts at 0 in state 0 and -1e30 elsewhere, and each
+  step is ``lse2(alpha[inv_nst[s][0]] + g0[s], alpha[inv_nst[s][1]] +
+  g1[s])``; backward: ``beta`` starts at 0, ``cand_u[s] = (beta +
+  g_u)[nst[s][u]]``, ``e[t] = reduce_s(al + cand1) - reduce_s(al +
+  cand0)`` with ``reduce_s`` halving contiguously (states s and s + S/2
+  pair first); no per-step normalisation;
+* ``lse2``: exact ``max + log1p(exp(-|x-y|))``, max-log ``max``, or
+  linear ``max + max(0.6931472 - 0.25|x-y|, 0)``;
+* masked variant (``valid``/``first``): invalid steps leave both
+  recursions as they were; ``first`` picks the exact state-0 start or a
+  uniform 0 start.  Boundary variant (``boundary=(a0, bT)``): start
+  metrics in, final alpha and backward-final beta out;
+* ``io_dtype='bf16'`` rounds w1, w2 and li to bfloat16 on the way in and
+  ``e`` on the way out.
+
+Dropped from the TPU wrapper, with the reason: ``lane_chunk`` and the
+(8, 128) folding (a TPU tile shape; here one thread owns one lane),
+``astride`` (it recomputed odd alphas when the history overflowed VMEM;
+the recomputed values equal the stored ones, and here the history lives
+in device memory, a ``[T, S, R]`` float32 scratch from ``torch.empty``),
+and ``_VMEM_BUDGET`` / ``bcjr_vmem_bytes`` (TPU VMEM sizing).  The guards
+stay: binary input, a power-of-two number of states and bijective
+per-input state maps.  The CUDA kernel takes S <= 16 and raises beyond.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ..utils.device import device_constant
+from . import _build
+
+__all__ = ["bcjr_appdiff", "bcjr_appdiff_plain", "MAX_STATES"]
+
+MAX_STATES = 16  # the kernel holds a lane's state metrics in registers
+NEG = -1e30  # start metric of every state but 0
+_MODES = {"exact": 0, "maxlog": 1, "linear": 2}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("bcjr")
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.bcjr_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i,
+                                i, i, ip, ip, u, u, u, u, p]
+    lib.bcjr_launch.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _w_tables(trellis):
+    """Tables of the w-stream recursion: (inv_nst [S, 2], nst [S, 2],
+    which [2, S], sign [2, S]).
+
+    For input u and destination state s, the branch ``inv_nst[s, u]
+    --u--> s`` has metric ``sign[u, s] * w_{which[u, s]} + u * li``.
+    Requires a rate-1/2 binary trellis whose per-input state maps are
+    bijections (every shift-register code).
+    """
+    from ..ops.turbo import _bcjr_tables_np
+
+    nst, cs, cp, _, _ = _bcjr_tables_np(trellis)
+    S, I = nst.shape
+    if I != 2:
+        raise NotImplementedError(
+            "the BCJR kernel supports binary-input trellises; use "
+            "backend='torch'")
+    inv = np.full((S, 2), -1, np.int64)
+    for s in range(S):
+        for u in range(2):
+            inv[nst[s, u], u] = s
+    if (inv < 0).any():
+        raise NotImplementedError(
+            "trellis per-input state maps are not bijective; use "
+            "backend='torch'")
+    which = np.zeros((2, S), np.int64)
+    sign = np.zeros((2, S), np.float32)
+    for u in range(2):
+        for s in range(S):
+            sp = inv[s, u]
+            a, b = cs[sp, u], cp[sp, u]
+            which[u, s] = 0 if a == b else 1
+            sign[u, s] = a
+    tables = (inv, nst.astype(np.int64), which, sign)
+    for t in tables:  # cached: shared by every caller
+        t.setflags(write=False)
+    return tables
+
+
+def _lse2(mode: str):
+    if mode == "maxlog":
+        return torch.maximum
+    if mode == "linear":
+        def lse2(x, y):
+            return torch.maximum(x, y) + torch.clamp_min(
+                0.6931472 - 0.25 * torch.abs(x - y), 0.0)
+        return lse2
+
+    def lse2(x, y):
+        return torch.maximum(x, y) + torch.log1p(torch.exp(-torch.abs(x - y)))
+    return lse2
+
+
+def _prepare(syn, pan, li, trellis, max_log, valid, first, io_dtype,
+             boundary, lse, combined):
+    """Checks and the kernel-side inputs shared by the kernel and its
+    plain version: (mode, tables, w1, w2, li, valid, first, a0, bT), the
+    streams in the io type, ``valid`` [T, R] and ``first`` [R] as bool
+    (or None), the boundary metrics float32 [S, R] (or None)."""
+    if io_dtype not in ("f32", "bf16"):
+        raise ValueError('io_dtype must be "f32" or "bf16"')
+    if lse not in (None, "exact", "linear"):
+        raise ValueError('lse must be None, "exact" or "linear"')
+    S = trellis.number_states
+    if S & (S - 1):
+        raise NotImplementedError(
+            "the BCJR kernel requires a power-of-two state count (every "
+            "shift-register trellis); use backend='torch'")
+    tables = _w_tables(trellis)
+    if syn.ndim != 2 or pan.shape != syn.shape or li.shape != syn.shape:
+        raise ValueError(f"syn, pan and li must share one [T, R] shape, got "
+                         f"{tuple(syn.shape)}, {tuple(pan.shape)}, "
+                         f"{tuple(li.shape)}")
+    T, R = syn.shape
+    dev = syn.device
+    if valid is not None and boundary is not None:
+        raise ValueError("boundary handoff and valid masking are mutually "
+                         "exclusive")
+    io = torch.bfloat16 if io_dtype == "bf16" else torch.float32
+    for name, x in (("pan", pan), ("li", li), ("valid", valid),
+                    ("first", first)):
+        if x is not None and x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, syn on {dev}")
+    if combined:
+        w1, w2 = syn.to(io), pan.to(io)
+    else:
+        w1 = (syn.float() + pan.float()).to(io)
+        w2 = (syn.float() - pan.float()).to(io)
+    li_io = li.to(io)
+    if valid is not None:
+        if tuple(valid.shape) != (T, R):
+            raise ValueError(f"valid must be [{T}, {R}], got "
+                             f"{tuple(valid.shape)}")
+        # the Pallas kernel reads the masks in the io type, > 0.5
+        valid = valid.to(io).float() > 0.5
+        first = (torch.ones(R, dtype=torch.bool, device=dev) if first is None
+                 else first.to(io).float() > 0.5)
+        if tuple(first.shape) != (R,):
+            raise ValueError(f"first must be [{R}], got {tuple(first.shape)}")
+    a0 = bT = None
+    if boundary is not None:
+        a0, bT = (torch.as_tensor(x, device=dev).float() for x in boundary)
+        for name, x in (("a0", a0), ("bT", bT)):
+            if tuple(x.shape) != (S, R):
+                raise ValueError(f"{name} must be [{S}, {R}], got "
+                                 f"{tuple(x.shape)}")
+    mode = "maxlog" if max_log else ("linear" if lse == "linear" else
+                                      "exact")
+    return mode, tables, w1, w2, li_io, valid, first, a0, bT
+
+
+def _finish(e, li, af, bf, posterior, boundary):
+    """The wrapper's output: ``e`` in float32, less the float32 prior
+    unless ``posterior``; with the carries for the boundary variant."""
+    e_out = e.float()
+    if not posterior:
+        e_out = e_out - li.float()
+    if boundary is None:
+        return e_out
+    return e_out, af, bf
+
+
+def bcjr_appdiff_plain(syn, pan, li, trellis, max_log: bool = False,
+                       valid=None, first=None, io_dtype: str = "f32",
+                       boundary=None, lse: str = None, combined: bool = False,
+                       posterior: bool = False):
+    """Plain PyTorch version of the BCJR kernel (same inputs and outputs as
+    :func:`bcjr_appdiff`), in the Pallas body's order of float operations.
+    """
+    mode, (inv, nst, which, sign), w1, w2, li_io, valid, first, a0, bT = \
+        _prepare(syn, pan, li, trellis, max_log, valid, first, io_dtype,
+                 boundary, lse, combined)
+    lse2 = _lse2(mode)
+    T, R = syn.shape
+    S = trellis.number_states
+    dev = syn.device
+    w1f, w2f, lif = w1.float(), w2.float(), li_io.float()
+
+    def branch(u):  # [T, S, R]: +-w per destination state
+        w = torch.where(device_constant(which[u] == 1, dev)[None, :, None],
+                        w2f[:, None, :], w1f[:, None, :])
+        return torch.where(device_constant(sign[u] < 0, dev)[None, :, None],
+                           -w, w)
+
+    g0 = branch(0)
+    g1 = branch(1) + lif[:, None, :]
+    inv0, inv1 = (device_constant(inv[:, u], dev) for u in range(2))
+    nst0, nst1 = (device_constant(nst[:, u], dev) for u in range(2))
+    later = (torch.arange(S, device=dev) > 0)[:, None]
+    if a0 is not None:
+        alpha = a0
+    elif valid is not None:
+        alpha = torch.where(later & first[None, :], NEG, 0.0)
+    else:
+        alpha = torch.where(later, NEG, 0.0).expand(S, R)
+    alpha = alpha.to(torch.float32)
+
+    hist = []
+    for t in range(T):
+        hist.append(alpha)  # the pre-update metrics, which the APP at t uses
+        a = lse2(alpha[inv0] + g0[t], alpha[inv1] + g1[t])
+        alpha = a if valid is None else torch.where(valid[t], a, alpha)
+
+    def reduce_s(x):
+        while x.shape[0] > 1:
+            h = x.shape[0] // 2
+            x = lse2(x[:h], x[h:])
+        return x[0]
+
+    beta = (bT if bT is not None
+            else torch.zeros((S, R), dtype=torch.float32, device=dev))
+    e = torch.empty((T, R), dtype=w1.dtype, device=dev)
+    for t in range(T - 1, -1, -1):
+        cand0 = (beta + g0[t])[nst0]
+        cand1 = (beta + g1[t])[nst1]
+        b = lse2(cand0, cand1)
+        al = hist[t]
+        e[t] = (reduce_s(al + cand1) - reduce_s(al + cand0)).to(e.dtype)
+        beta = b if valid is None else torch.where(valid[t], b, beta)
+    return _finish(e, li, alpha, beta, posterior, boundary)
+
+
+def _pack(bits) -> int:
+    return int(sum(int(b) << s for s, b in enumerate(bits)))
+
+
+def bcjr_appdiff(syn, pan, li, trellis, max_log: bool = False, valid=None,
+                 first=None, io_dtype: str = "f32", boundary=None,
+                 lse: str = None, combined: bool = False,
+                 posterior: bool = False):
+    """Fused BCJR pass; returns the prior-free APP log-ratio.
+
+    syn/pan : ``[T, R]`` symbol streams pre-scaled by 1/noise_variance
+        (or, with ``combined=True``, the w-streams ``(sy + pa)/nv`` and
+        ``(sy - pa)/nv`` themselves)
+    li : ``[T, R]`` intrinsic LLRs
+    valid : ``[T, R]`` or None; the recursions pass through invalid
+        positions unchanged (window halos, padding)
+    first : ``[R]`` bool or None; True lanes start exactly in state 0,
+        False lanes from a uniform metric; None means all exact
+    boundary : None, or ``(a0 [S, R], bT [S, R])`` start alpha and
+        final-position beta; then returns ``(e, a_fin, b_fin)``, the
+        post-final alpha and the backward-final beta.  Excludes ``valid``.
+    lse : None or ``"exact"`` (log-MAP, or max-log with ``max_log``) or
+        ``"linear"`` (linear-log-MAP)
+    io_dtype : ``"f32"`` or ``"bf16"`` (streams and ``e`` rounded)
+    posterior : return ``li + e`` (the full posterior ratio) instead of e
+
+    Returns ``e [T, R]`` float32.  CUDA tensors launch the kernel; CPU
+    tensors run :func:`bcjr_appdiff_plain`.
+    """
+    if syn.device.type == "cpu":
+        return bcjr_appdiff_plain(syn, pan, li, trellis, max_log, valid,
+                                  first, io_dtype, boundary, lse, combined,
+                                  posterior)
+    if syn.device.type != "cuda":
+        raise ValueError(f"bcjr_appdiff runs on cuda or cpu, not "
+                         f"{syn.device}")
+    mode, (inv, nst, which, sign), w1, w2, li_io, valid, first, a0, bT = \
+        _prepare(syn, pan, li, trellis, max_log, valid, first, io_dtype,
+                 boundary, lse, combined)
+    T, R = syn.shape
+    S = trellis.number_states
+    if S > MAX_STATES:
+        raise NotImplementedError(
+            f"the CUDA BCJR kernel takes S <= {MAX_STATES} states (got {S})")
+    dev = syn.device
+    w1, w2, li_io = w1.contiguous(), w2.contiguous(), li_io.contiguous()
+    e = torch.empty((T, R), dtype=w1.dtype, device=dev)
+    af = bf = None
+    if boundary is not None:
+        a0, bT = a0.contiguous(), bT.contiguous()
+        af = torch.empty((S, R), dtype=torch.float32, device=dev)
+        bf = torch.empty((S, R), dtype=torch.float32, device=dev)
+    if valid is not None:
+        valid = valid.to(torch.uint8).contiguous()
+        first = first.to(torch.uint8).contiguous()
+    variant = 2 if boundary is not None else (1 if valid is not None else 0)
+    if T and R:
+        hist = torch.empty((T, S, R), dtype=torch.float32, device=dev)
+        tab = (ctypes.c_int * (2 * S))
+        ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+        with torch.cuda.device(dev):
+            rc = _lib().bcjr_launch(
+                w1.data_ptr(), w2.data_ptr(), li_io.data_ptr(), ptr(valid),
+                ptr(first), ptr(a0), ptr(bT), e.data_ptr(), ptr(af), ptr(bf),
+                hist.data_ptr(), T, R, S, _MODES[mode], variant,
+                int(w1.dtype == torch.bfloat16),
+                tab(*inv.T.reshape(-1).tolist()),
+                tab(*nst.T.reshape(-1).tolist()),
+                _pack(which[0]), _pack(which[1]), _pack(sign[0] < 0),
+                _pack(sign[1] < 0),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError(f"bcjr_appdiff kernel launch failed: CUDA "
+                               f"error {rc}")
+        bcjr_appdiff.launches += 1
+    elif boundary is not None:  # nothing to run: the carries pass through
+        af.copy_(a0)
+        bf.copy_(bT)
+    return _finish(e, li, af, bf, posterior, boundary)
+
+
+bcjr_appdiff.launches = 0

@@ -16,7 +16,8 @@ Conventions follow the reference link stack: SNR_dB = (Eb/N0)_dB +
 10 log10(Rc * Mc); complex AWGN noise ``(re + 1j*im) * noise_std * 0.5``;
 soft Viterbi consumes LLRs with positive => bit 1; LDPC BP consumes
 ``llr = -demodulate_soft(...)``, positive => bit 0 (signbit decisions).
-The turbo, MIMO and OFDM links are not ported yet.
+The turbo link is real BPSK over real AWGN, ``tx + noise * noise_std``.
+The MIMO and OFDM links are not ported yet.
 """
 from __future__ import annotations
 
@@ -34,11 +35,12 @@ from ..ops.ldpc import build_matrix, ldpc_bp_decode_device, ldpc_encode_device
 from ..ops.qcldpc import qc_bp_decode_device, qc_encoder
 from ..ops.scramble import descramble, scramble
 from ..ops.trellis import Trellis
+from ..ops.turbo import turbo_decode_device, turbo_encode_device
 from ..ops.viterbi import viterbi_decode_device
 from ..utils.device import device_constant, on_device, resolve_device
 
-__all__ = ["DeviceLink", "make_conv_awgn_link", "make_qcldpc_awgn_link",
-           "make_ldpc_rayleigh_link"]
+__all__ = ["DeviceLink", "make_conv_awgn_link", "make_turbo_awgn_link",
+           "make_qcldpc_awgn_link", "make_ldpc_rayleigh_link"]
 
 
 @dataclass
@@ -51,10 +53,14 @@ class DeviceLink:
     transceive : ``(bits [F, frame_bits] int8, noise [F, n_symbols]
         complex64, noise_std) -> decoded bits [F, frame_bits] int8``; the
         deterministic part of ``link_step`` (a fading link also takes its
-        channel gains ``h [F, n_symbols]`` complex64).
+        channel gains ``h [F, n_symbols]`` complex64).  The turbo link's
+        noise is real: ``[F, frame_bits, 3]`` float32 (systematic and two
+        parity streams), and ``n_symbols`` counts its values.
     receive : same arguments as ``transceive``; returns the decoder's
-        input (depunctured LLRs, hard bits or reals) ``[F, n_coded]``.
-    decode : ``receive``'s output -> decoded bits ``[F, frame_bits]``.
+        input (depunctured LLRs, hard bits or reals) ``[F, n_coded]``; the
+        turbo link's is the received reals ``[F, frame_bits, 3]``.
+    decode : ``receive``'s output -> decoded bits ``[F, frame_bits]``; the
+        turbo link's also takes ``noise_std``.
     """
 
     link_step: Callable
@@ -177,6 +183,73 @@ def make_conv_awgn_link(
                        "trellis": trellis, "decoding_type": decoding_type},
                       transceive,
                       n_sym, receive, decode)
+
+
+def make_turbo_awgn_link(
+    *,
+    trellis: Trellis,
+    frame_bits: int,
+    p_array,
+    n_iterations: int = 8,
+    window=None,
+    window_init: str = "warmup",
+    kernel_io: str = "f32",
+    name: str = "turbo-awgn",
+    device="cuda",
+) -> DeviceLink:
+    """Rate-1/3 PCCC turbo link over real-BPSK AWGN.
+
+    bits -> :func:`~commpy_tpu_torch.ops.turbo.turbo_encode_device` ->
+    BPSK (bit b -> 2b-1) -> ``+ noise * noise_std`` -> turbo decode ->
+    XOR count.  ``window`` / ``window_init`` / ``kernel_io`` pass through
+    to :func:`~commpy_tpu_torch.ops.turbo.turbo_decode_device` (the K3
+    route on the card); long frames should run ``window=(128, 0),
+    window_init='nii'``.  ``noise_std_fn`` is for real noise at rate 1/3,
+    so the link's SNR is Eb/N0 + 3.01 dB.
+    """
+    dev = resolve_device(device)
+    rate = 1.0 / 3.0
+    p_array = np.asarray(p_array, np.int64)
+    if p_array.size != frame_bits:
+        raise ValueError(f"p_array has {p_array.size} entries, the frame "
+                         f"{frame_bits} bits")
+
+    def receive(bits, noise, noise_std):
+        with record_function("link.encode"):
+            sys_b, par1_b, par2_b = turbo_encode_device(
+                bits, trellis, trellis, p_array, device=dev)
+            tx = 2.0 * torch.stack([sys_b, par1_b, par2_b], -1).to(
+                torch.float32) - 1.0  # [F, L, 3]
+        with record_function("link.modulate_channel"):
+            return tx + on_device(noise, dev) * float(np.float32(noise_std))
+
+    def decode(y, noise_std):
+        with record_function("link.turbo_decode"):
+            ns = np.float32(noise_std)
+            return turbo_decode_device(
+                y[..., 0], y[..., 1], y[..., 2], trellis, ns * ns,
+                n_iterations, p_array, window=window,
+                window_init=window_init, kernel_io=kernel_io, device=dev)
+
+    def transceive(bits, noise, noise_std):
+        return decode(receive(bits, noise, noise_std), noise_std)
+
+    def link_step(generator, n_frames, noise_std):
+        bits = _gen_bits(generator, n_frames, frame_bits, dev)
+        noise = torch.randn((n_frames, frame_bits, 3), generator=generator,
+                            device=dev)
+        dec = transceive(bits, noise, noise_std)
+        with record_function("link.count_errors"):
+            return torch.sum(torch.bitwise_xor(dec, bits), dtype=torch.int32)
+
+    def noise_std_fn(snr_db):
+        # real channel: noise_std = sqrt(Es / (rate * snr))
+        return snr_to_noise_std(snr_db, code_rate=rate, Es=1.0,
+                                is_complex=False)
+
+    return DeviceLink(link_step, frame_bits, noise_std_fn, name,
+                      {"rate": rate}, transceive, 3 * frame_bits, receive,
+                      decode)
 
 
 def _ldpc_link_parts(name, dev, receive, decode, frame_bits, n_sym, rate,

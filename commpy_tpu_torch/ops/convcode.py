@@ -3,13 +3,15 @@
 Counterpart of ``commpy_tpu/ops/convcode.py``.  ``encode_scan`` encodes a
 batch ``[..., L]`` on the tensor's device: feedforward codes as shifted
 XORs of the input (no sequential loop), other codes by clocking the
-trellis FSM in a Python loop over time.  :func:`conv_encode` is the
+trellis FSM in a Python loop over time, eight input bits a step.  :func:`conv_encode` is the
 reference-compatible host encoder ('cont' / 'term' framing, the RSC tail
 driven by the reversed state bits, and the historical full-length
 punctured output).  Puncturing is a static mask; depuncturing is a
 gather through a static source index followed by a ``where``.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -22,24 +24,60 @@ __all__ = ["conv_encode", "encode_scan", "puncturing", "depuncturing",
            "puncture_mask", "depuncture_device"]
 
 
+_CHUNK_COMBOS = 256  # input combinations a chunk table covers per state
+
+
+@functools.lru_cache(maxsize=64)
+def _chunk_tables(trellis: Trellis, c: int, device: str):
+    """The FSM clocked over ``c`` input symbols at once, on ``device``:
+    next state ``[S, I**c]`` and output symbols ``[S, I**c, c]``, the
+    chunk's first symbol the most significant digit of the combination
+    index; and the digit weights ``[c]``."""
+    S, I = trellis.number_states, trellis.number_inputs
+    weights = I ** np.arange(c - 1, -1, -1)
+    digits = (np.arange(I ** c)[:, None] // weights) % I
+    state = np.repeat(np.arange(S)[:, None], I ** c, axis=1)
+    outs = np.empty((S, I ** c, c), np.int64)
+    for j in range(c):
+        outs[:, :, j] = trellis.output_table[state, digits[:, j]]
+        state = trellis.next_state_table[state, digits[:, j]]
+    return tuple(torch.as_tensor(x, dtype=torch.long, device=device)
+                 for x in (state, outs, weights))
+
+
 def _encode_symbols(symbols: torch.Tensor, trellis: Trellis,
                     start_state: int = 0):
     """Clock the encoder FSM over packed k-bit inputs ``[..., T]``.
 
-    Returns (out_bits ``[..., T, n]`` int8, final_state ``[...]`` int32).
+    The FSM steps ``c`` symbols at a time through :func:`_chunk_tables`
+    (``I**c <= 256``), so a frame of T symbols takes T/c gathers of state
+    and outputs instead of T; the symbols past the last whole chunk step
+    one at a time.  Returns (out_bits ``[..., T, n]`` int8, final_state
+    ``[...]`` int32).
     """
     dev = symbols.device
-    nst = torch.as_tensor(trellis.next_state_table, dtype=torch.long,
-                          device=dev)
-    ot = torch.as_tensor(trellis.output_table, dtype=torch.long, device=dev)
+    I = trellis.number_inputs
+    c = 1
+    while I ** (c + 1) <= _CHUNK_COMBOS:
+        c += 1
+    lead, T = symbols.shape[:-1], symbols.shape[-1]
+    n_chunks = T // c
+    nst_c, ot_c, weights = _chunk_tables(trellis, c, str(dev))
+    nst, ot = (device_constant(np.asarray(x, np.int64), dev)
+               for x in (trellis.next_state_table, trellis.output_table))
     symbols = symbols.long()
-    state = torch.full(symbols.shape[:-1], start_state, dtype=torch.long,
-                       device=dev)
-    outs = torch.empty(symbols.shape, dtype=torch.long, device=dev)
-    for t in range(symbols.shape[-1]):
-        sym = symbols[..., t]
-        outs[..., t] = ot[state, sym]
-        state = nst[state, sym]
+    combos = (symbols[..., :n_chunks * c].reshape(lead + (n_chunks, c))
+              * weights).sum(-1)
+    state = torch.full(lead, start_state, dtype=torch.long, device=dev)
+    outs = []
+    for t in range(n_chunks):
+        outs.append(ot_c[state, combos[..., t]])
+        state = nst_c[state, combos[..., t]]
+    for t in range(n_chunks * c, T):
+        outs.append(ot[state, symbols[..., t]][..., None])
+        state = nst[state, symbols[..., t]]
+    outs = (torch.cat(outs, -1) if outs
+            else torch.empty(lead + (0,), dtype=torch.long, device=dev))
     return unpack_bits(outs, trellis.n), state.to(torch.int32)
 
 
