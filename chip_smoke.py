@@ -22,10 +22,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    and 512 with clean lanes, +-0.0 LLRs and lanes that converge at
    different iterations; the streamed layered kernel K5 on the
    DVB-S2-class (16200, 7200) code with its wrap-edge pos_masks, NR BG1
-   at Z=208 and the 802.11n 648 code, float32 and bfloat16 message
-   stores.  MSA must match bit for bit (decisions and posteriors); SPA
-   must give identical decisions and posteriors within rtol = atol =
-   1e-4.  For MSA at small B the plain versions also run on the host CPU;
+   at Z=208 (rows of up to 24 blocks) and the 802.11n 648 code, B = 1,
+   3, 37, 397 (no multiple of the frames in flight) and 512, and two
+   synthetic codes (a column repeated within a row; a single row),
+   float32 and bfloat16 message stores.  MSA must match bit for bit
+   (decisions and posteriors); SPA must give identical decisions and
+   posteriors within rtol = atol = 1e-4.  For MSA at small B the plain
+   versions also run on the host CPU;
 6. Path A: the 802.11n LDPC link (1944, rate 1/2, 16-QAM, MSA 15) at
    F=512 frames per step at 10 dB through ``montecarlo_ber``, with K4's
    launch counter rising, and its physics checks (1944 BPSK at Eb/N0
@@ -40,8 +43,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``K3Tally``): RSC codes of S = 2, 4, 8 and 16 states and a relabelled
    8-state code, log-MAP, max-log and linear, the plain, masked and
    boundary variants, f32 and bf16 io, combined and posterior on and off,
-   T = 1, odd T and R not a multiple of 32 (the plain version also on the
-   host CPU for max-log and linear), and the three bench shapes;
+   T = 1, 2 and 3, odd T and R not a multiple of 32 (the plain version
+   also on the host CPU for max-log and linear), both history placements
+   (shared and device memory) where they fit, S = 16 at T = 320 (device
+   memory), and the three bench shapes;
 9. Path C: the rate-1/3 turbo link (LTE's L=6144, 4-state RSC,
    ``RandInterlv(6144, 0)``, 8 iterations, NII windows (128, 0)) at F=256
    frames per step at Eb/N0 1.0 dB through ``montecarlo_ber``, with K3's
@@ -54,9 +59,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
 10. times each kernel and its plain version with CUDA events (the Viterbi
    decoder at the bench configuration and the MCS-4 link step; K4 at
    B=512 MSA-15 flooding and layered-8; K5 at B=512 layered-8, float32
-   and bfloat16; K3 at its three bench shapes), the turbo decoder at the
-   JAX bench's configurations, and the Path A and Path C link steps, with
-   their profiles.
+   and bfloat16; K3 at its three bench shapes), K4's, K5's and K3's
+   device time with torch.profiler beside it (K5 at 1, 2 and 3 frames
+   per SM and after 0, 1 and 2 sweeps, and on NR BG1 Z=384, held to its
+   plain version there, at the plan's grid and at one whose stores fit
+   the L2; K3 with each history placement), Path B's noisy
+   decodes end to end (info bits/s, K5's sweeps, its time and bound),
+   the turbo decoder at the JAX bench's configurations, and the Path A
+   and Path C link steps, with their profiles.
 
 Exits non-zero, with no result line, when there is no CUDA device or the
 port cannot be imported, and on any failed check.  The last line is
@@ -94,6 +104,8 @@ SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # (log-MAP); max (max-log); max, subtract, multiply, subtract, max, add
 # (linear)
 LSE2_FLOPS = {"exact": 3, "maxlog": 1, "linear": 5}
+MS_NOTE = ("ms: CUDA events around back-to-back wrapper calls, as for every "
+           "kernel; device_ms: the kernel's own device time (torch.profiler)")
 
 
 def fail(msg):
@@ -115,6 +127,29 @@ def cuda_ms(torch, fn, reps, warmup=1):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(torch, fn, reps, kernel):
+    """Mean device time in ms of one launch of the kernels whose name holds
+    ``kernel``, over ``reps`` calls of ``fn`` after one warm-up call
+    (torch.profiler): the kernel alone, without the host's time between
+    launches that CUDA events around back-to-back calls also count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for e in prof.key_averages():
+        if kernel in e.key:
+            us += _device_us(e, "self_")
+            n += e.count
+    if not n or not us:
+        fail(f"the profiler saw no device time of {kernel}")
+    return us / n / 1e3
 
 
 def k1_bound(B, T, n, S):
@@ -455,35 +490,70 @@ def k4_parity(torch, tally, codes):
                            msa_scale=sc)
 
 
-def k5_parity(torch, tally, codes):
-    """The streamed kernel against its plain version on the DVB-S2-class
-    16200 code (pos_masks), NR BG1 Z=208 and 802.11n 648."""
-    from commpy_tpu_torch.kernels import qc_bp as Q
+K5_VARIANTS = [("MSA", "f32", 1.0), ("MSA", "bf16", 1.0),
+               ("SPA", "f32", 1.0), ("SPA", "bf16", 1.0),
+               ("MSA", "f32", 0.75), ("MSA", "bf16", 0.75)]
+# codes no standard has, for two paths of K5: a column repeated within a
+# check block row (barriers before the repeated block) and a single check
+# block row (its ring is refilled from its own messages)
+K5_SYNTHETIC = {
+    "repeat-col-z64": (64, 12, (
+        ((0, 0), (1, 3), (0, 17), (2, 5)), ((2, 1), (3, 0), (4, 9), (3, 33)),
+        ((4, 2), (5, 7), (6, 0)), ((6, 11), (7, 4), (8, 0), (6, 40), (7, 1)),
+        ((8, 5), (9, 0), (10, 3)), ((10, 8), (11, 0), (9, 21), (11, 13)))),
+    "one-row-z32": (32, 3, (((0, 0), (1, 5), (2, 9)),)),
+}
+
+
+def k5_cases(codes):
+    """(name, meta, pos_masks, rate, codeword maker, B, variants) of every
+    K5 parity case: the DVB-S2-class 16200 code (pos_masks), NR BG1 Z=208
+    (rows of up to 24 blocks) and 802.11n 648 at B = 3, 37 and 512; then a
+    batch of one, a batch that is no multiple of the frames in flight
+    (397), and the two synthetic codes."""
     from commpy_tpu_torch.ops.qcldpc import _pos_masks, qc_rows
 
-    dev = torch.device("cuda")
-    variants = [("MSA", "f32", 1.0), ("MSA", "bf16", 1.0),
-                ("SPA", "f32", 1.0), ("SPA", "bf16", 1.0),
-                ("MSA", "f32", 0.75), ("MSA", "bf16", 0.75)]
-    big = {"dvbs2-16200-1/2": [variants[0], variants[1], variants[2]],
-           "nr-bg1-z208": variants[:1], "80211n-648-1/2": variants[1:2]}
-    seed = 2000
+    v = K5_VARIANTS
+    real = {}
     for name in ("dvbs2-16200-1/2", "nr-bg1-z208", "80211n-648-1/2"):
         p, make = codes[name]
-        meta = (p["Z"], p["Nb"], qc_rows(p))
-        rate = p["k_bits"] / p["n_vnodes"]
+        real[name] = ((p["Z"], p["Nb"], qc_rows(p)), _pos_masks(p),
+                      p["k_bits"] / p["n_vnodes"], make)
+    for name, meta in K5_SYNTHETIC.items():
+        n = meta[0] * meta[1]
+        real[name] = (meta, (), 0.5,
+                      lambda B, rng, n=n: np.zeros((B, n), np.int8))
+    big = {"dvbs2-16200-1/2": v[:3], "nr-bg1-z208": v[:1],
+           "80211n-648-1/2": v[1:2]}
+    cases = []
+    for name in ("dvbs2-16200-1/2", "nr-bg1-z208", "80211n-648-1/2"):
         for B in (3, 37, 512):
-            for alg, io, sc in (variants if B < 512 else big[name]):
-                seed += 1
-                rng = np.random.RandomState(seed)
-                llr = torch.as_tensor(qc_case_llr(
-                    make(B, rng), rate, seed, 0.5 if alg == "MSA" else 2.0),
-                    device=dev)
-                qc_compare(torch, tally, Q.qc_bp_streamed,
-                           Q.qc_bp_streamed_plain, llr, alg == "MSA",
-                           B <= 3 and alg == "MSA", algorithm=alg,
-                           n_iters=6, meta=meta,
-                           msa_scale=sc, pos_masks=_pos_masks(p), msg_io=io)
+            cases.append((name, B, v if B < 512 else big[name]))
+    cases += [("dvbs2-16200-1/2", 1, v[:4]), ("dvbs2-16200-1/2", 397, v[:4]),
+              ("nr-bg1-z208", 397, v[:4])]
+    cases += [(name, B, v) for name in K5_SYNTHETIC for B in (3, 37)]
+    return [(name, *real[name], B, variants) for name, B, variants in cases]
+
+
+def k5_parity(torch, tally, codes):
+    """The streamed kernel against its plain version in every case of
+    :func:`k5_cases`."""
+    from commpy_tpu_torch.kernels import qc_bp as Q
+
+    dev = torch.device("cuda")
+    seed = 2000
+    for name, meta, pm, rate, make, B, variants in k5_cases(codes):
+        for alg, io, sc in variants:
+            seed += 1
+            rng = np.random.RandomState(seed)
+            llr = torch.as_tensor(qc_case_llr(
+                make(B, rng), rate, seed, 0.5 if alg == "MSA" else 2.0),
+                device=dev)
+            qc_compare(torch, tally, Q.qc_bp_streamed,
+                       Q.qc_bp_streamed_plain, llr, alg == "MSA",
+                       B <= 3 and alg == "MSA", algorithm=alg,
+                       n_iters=6, meta=meta, msa_scale=sc, pos_masks=pm,
+                       msg_io=io)
 
 
 def qc_bound(B, n, edges, iters, store_bytes=0):
@@ -508,6 +578,46 @@ def sweeps_needed(torch, params, dec, n_iters):
                _pos_masks(params))
     bad = _syndrome_bad(dec, g, dec.device).cpu().numpy()
     return np.where(bad, n_iters, 1)
+
+
+def sweeps_run(torch, params, llr_qc, n_iters, msg_io):
+    """Sweeps K5 runs on each frame of its input ``llr_qc``: the least k
+    whose decode with ``n_iters=k`` passes the syndrome (a frame stops
+    there), else ``n_iters``."""
+    from commpy_tpu_torch.kernels import qc_bp as QK
+    from commpy_tpu_torch.ops.qcldpc import _pos_masks, qc_rows
+
+    meta = (params["Z"], params["Nb"], qc_rows(params))
+    pm = _pos_masks(params)
+    g = QK._graph(meta, pm)
+    sweeps = np.full(llr_qc.shape[0], n_iters)
+    for k in range(n_iters - 1, -1, -1):
+        dec, _ = QK.qc_bp_streamed(llr_qc, "MSA", k, meta, pos_masks=pm,
+                                   msg_io=msg_io)
+        sweeps[~QK._syndrome_bad(dec, g, dec.device).cpu().numpy()] = k
+    return sweeps
+
+
+def k5_at_grid(torch, x, meta, pm, io, grid):
+    """K5 (MSA, 8 sweeps) on ``x`` with ``grid`` blocks in place of its
+    launch plan's, held to the plan's bits: its device time, the grid and
+    the store of the frames in flight."""
+    from commpy_tpu_torch.kernels import qc_bp as QK
+
+    g = QK._graph(meta, pm)
+    want = QK.qc_bp_streamed(x, "MSA", 8, meta, pos_masks=pm, msg_io=io)
+    plan = QK.streamed_plan(g["Z"], g["Nb"], g["kmax"], g["E"], x.shape[0],
+                            io, QK.sm_count(x.device.index))
+    plan = dict(plan, grid=grid, store_elems=grid * g["E"] * plan["Zp"])
+
+    def run():
+        return QK._streamed_launch(x, g, "MSA", 8, 1.0, 0.0, io, plan)
+    got = run()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail(f"K5 with {grid} blocks disagrees with its own plan")
+    return {"device_ms": device_ms(torch, run, 5, "qc_bp_streamed_kernel"),
+            "grid": grid, "store_mb": plan["store_elems"]
+            * (2 if io == "bf16" else 4) / 1e6}
 
 
 def rsc_trellises():
@@ -597,10 +707,28 @@ def k3_inputs(torch, S, T, R, variant, seed, dev, halo=4):
     return syn, pan, li, kw
 
 
+def k3_call(torch, syn, pan, li, trellis, hist=None, **kw):
+    """K3 on CUDA inputs by its own launch plan, or with the history
+    placed as ``hist`` says ("shared" or "global")."""
+    from commpy_tpu_torch.kernels import bcjr as BK
+
+    if hist is None:
+        return BK.bcjr_appdiff(syn, pan, li, trellis, **kw)
+    args = dict(max_log=False, valid=None, first=None, io_dtype="f32",
+                boundary=None, lse=None, combined=False)
+    args.update({k: v for k, v in kw.items() if k in args})
+    mode, _, *streams = BK._prepare(syn, pan, li, trellis, *args.values())
+    T, R = syn.shape
+    plan = BK.bcjr_plan(T, trellis.number_states, R, hist=hist)
+    return BK._bcjr_launch(trellis, mode, *streams, li, args["boundary"],
+                           kw.get("posterior", False), plan)
+
+
 def k3_compare(torch, tally, trellis, S, T, R, mode, variant, io, combined,
-               posterior, seed, on_cpu):
-    """K3 and its plain version on the card (and, for max-log and linear
-    when ``on_cpu``, the plain version on the host) on the same inputs."""
+               posterior, seed, on_cpu, hists=(None,)):
+    """K3 (by its own plan, or with each history placement of ``hists``)
+    and its plain version on the card (and, for max-log and linear when
+    ``on_cpu``, the plain version on the host) on the same inputs."""
     from commpy_tpu_torch.kernels import bcjr as BK
 
     dev = torch.device("cuda")
@@ -608,12 +736,14 @@ def k3_compare(torch, tally, trellis, S, T, R, mode, variant, io, combined,
     kw = dict(vkw, max_log=mode == "maxlog",
               lse="linear" if mode == "linear" else None, io_dtype=io,
               combined=combined, posterior=posterior)
-    got = BK.bcjr_appdiff(syn, pan, li, trellis, **kw)
     want = BK.bcjr_appdiff_plain(syn, pan, li, trellis, **kw)
-    torch.cuda.synchronize()
-    got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    bad = tally.add(got, want, mode == "exact")
+    bad = 0
+    for hist in hists:
+        got = k3_call(torch, syn, pan, li, trellis, hist, **kw)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        bad += tally.add(got, want, mode == "exact")
     if on_cpu and mode != "exact":
         cpu = k3_inputs(torch, S, T, R, variant, seed, torch.device("cpu"))
         want_c = BK.bcjr_appdiff_plain(*cpu[:3], trellis,
@@ -623,7 +753,7 @@ def k3_compare(torch, tally, trellis, S, T, R, mode, variant, io, combined,
     if bad:
         fail(f"bcjr_appdiff disagrees with its plain version: {bad} values "
              f"at S={S}, T={T}, R={R}, {mode}, {variant}, io={io}, "
-             f"combined={combined}, posterior={posterior}")
+             f"combined={combined}, posterior={posterior}, hist={hists}")
 
 
 K3_BENCH = {  # (T, R, variant) of the three JAX bench decoders' K3 calls
@@ -637,14 +767,21 @@ def k3_parity(torch, tally, trellises):
     """K3 against its plain version: every trellis of ``rsc_trellises``
     under the three lse2 modes and the three variants, f32 and bf16 io,
     combined and posterior on and off, at small shapes (T = 1, odd T, R
-    not a multiple of 32), then the three bench shapes."""
+    not a multiple of 32); T = 1, 2 and 3 in every mode and variant;
+    both history placements at a small shape for every S and at the
+    three bench shapes where shared memory holds them; and S = 16 at
+    T = 320, which the plan sends to device memory."""
+    from commpy_tpu_torch.kernels import bcjr as BK
+
     shapes = [(1, 37), (7, 100), (33, 130), (64, 32)]
     ios = [("f32", False, False), ("bf16", True, False), ("f32", True, True),
            ("bf16", False, True)]
+    modes = ("exact", "maxlog", "linear")
+    variants = ("plain", "masked", "boundary")
     seed = 3000
     for S, tr in trellises:
-        for mode in ("exact", "maxlog", "linear"):
-            for variant in ("plain", "masked", "boundary"):
+        for mode in modes:
+            for variant in variants:
                 seed += 1
                 T, R = shapes[seed % 4]
                 io, comb, post = ios[(seed // 4) % 4]
@@ -653,8 +790,38 @@ def k3_parity(torch, tally, trellises):
     tr4 = trellises[1][1]
     for i, (T, R, variant) in enumerate(K3_BENCH.values()):
         for io in ("f32", "bf16"):
+            hists = [None, "global"]
+            try:
+                BK.bcjr_plan(T, 4, R, hist="shared")
+                hists.append("shared")
+            except ValueError:
+                pass
             k3_compare(torch, tally, tr4, 4, T, R, "exact", variant, io, True,
-                       True, 4000 + 2 * i + (io == "bf16"), False)
+                       True, 4000 + 2 * i + (io == "bf16"), False, hists)
+    # T = 1, 2, 3: the halves are empty or of one step
+    seed = 4100
+    for S, tr in trellises[:4]:
+        for T in (1, 2, 3):
+            for j, mode in enumerate(modes):
+                for variant in (variants if S == 4 else
+                                [variants[(T + j) % 3]]):
+                    seed += 1
+                    io, comb, post = ios[seed % 4]
+                    k3_compare(torch, tally, tr, S, T, 45, mode, variant, io,
+                               comb, post, seed, True, ("shared", "global"))
+    # both placements for every S, odd T and R
+    for S, tr in trellises:
+        for variant in variants:
+            seed += 1
+            k3_compare(torch, tally, tr, S, 33, 130, "exact", variant, "f32",
+                       False, False, seed, False, (None, "shared", "global"))
+    # S = 16 at T = 320: 640 KB of history a block, so device memory
+    if BK.bcjr_plan(320, 16, 96)["hist"] != "global":
+        fail("K3's plan keeps S=16, T=320 in shared memory")
+    for mode in modes:
+        seed += 1
+        k3_compare(torch, tally, trellises[3][1], 16, 320, 96, mode,
+                   "masked", "f32", True, True, seed, False)
 
 
 def k3_bound(T, R, S, mode, variant, io_bytes=4):
@@ -704,6 +871,7 @@ def main():
         from commpy_tpu_torch.kernels import qc_bp as QK
         from commpy_tpu_torch.models import wifi80211n_ldpc_link
         from commpy_tpu_torch.ops import dvbs2 as D
+        from commpy_tpu_torch.ops import nrldpc as N
         from commpy_tpu_torch.ops import qcldpc as Q
         from commpy_tpu_torch.kernels import bcjr as BK
         from commpy_tpu_torch.models import make_turbo_awgn_link
@@ -1147,18 +1315,126 @@ def main():
         iters = sweeps_needed(torch, prm, dec, kw["n_iters"])
         edges = int(np.sum(np.asarray(prm["block_j"]) >= 0)) * prm["Z"]
         msg_bytes = 2 if kw.get("msg_io") == "bf16" else 4
+        name = ("qc_bp_streamed_kernel" if kern is QK.qc_bp_streamed
+                else "qc_bp_resident_kernel")
         timings[key] = {
             "B": x.shape[0], "n": x.shape[1], "n_iters": kw["n_iters"],
             "frames_converged": int((iters < kw["n_iters"]).sum()),
             "ms": cuda_ms(torch, lambda: kern(x, **kw), 10),
+            "device_ms": device_ms(torch, lambda: kern(x, **kw), 5, name),
             "plain_ms": cuda_ms(torch, lambda: plain(x, **kw), 1, warmup=0),
             "bound": qc_bound(x.shape[0], x.shape[1], edges, iters,
                               msg_bytes if kern is QK.qc_bp_streamed else 0),
         }
         b = timings[key]
-        print(f"{key}: {b['ms']:.3f} ms (plain {b['plain_ms']:.1f} ms), "
+        print(f"{key}: {b['ms']:.3f} ms a call, {b['device_ms']:.3f} ms of "
+              f"device time (plain {b['plain_ms']:.1f} ms), "
               f"bound {bound_ms(*b['bound'][:2])[0]:.4f} ms, message store "
               f"{b['bound'][2] / HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
+    # K5's frames in flight: 1, 2 and 3 frames a SM (where shared memory
+    # holds them) beside the plan's, each held to the plan's bits
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for key in ("k5_f32", "k5_bf16"):
+        io = "bf16" if key == "k5_bf16" else "f32"
+        g5 = QK._graph(m5, pm5)
+        plan = QK.streamed_plan(g5["Z"], g5["Nb"], g5["kmax"], g5["E"], 512,
+                                io, sms)
+        trade = {"plan_frames_per_sm": plan["frames_per_sm"],
+                 "plan_store_mb": plan["store_bytes"] / 1e6}
+        for f in (1, 2, 3):
+            if f * (plan["smem_bytes"] + QK.SMEM_PER_BLOCK) > QK.SM_SMEM:
+                trade[f"{f}_per_sm"] = (f"does not fit: {f} blocks of "
+                                        f"{plan['smem_bytes']} bytes")
+                continue
+            trade[f"{f}_per_sm"] = k5_at_grid(torch, x5, m5, pm5, io,
+                                              min(512, f * sms))
+        timings[key]["frames_per_sm_trade"] = trade
+        # where K5's time goes: a launch that stops after 0, 1 (no message
+        # read) and 2 sweeps, beside the 8 of the bench
+        timings[key]["sweeps_device_ms"] = {k: device_ms(
+            torch, lambda k=k, io=io: QK.qc_bp_streamed(
+                x5, "MSA", k, m5, pos_masks=pm5, msg_io=io), 3,
+            "qc_bp_streamed_kernel") for k in (0, 1, 2)}
+        timings[key]["sweeps_device_ms"][8] = timings[key]["device_ms"]
+        print(f"{key} device ms by sweeps: "
+              f"{timings[key]['sweeps_device_ms']}; frames per SM: "
+              + ", ".join(f"{k} {v['device_ms']:.3f} ms (store "
+                          f"{v['store_mb']:.1f} MB)" if isinstance(v, dict)
+                          else f"{k} {v}" for k, v in trade.items()),
+              flush=True)
+    # NR BG1 at Z=384 (rows of up to 24 blocks, one 175 KB block an SM),
+    # random LLRs, 8 sweeps: held to the plain version, timed, and the
+    # plan's grid beside the smaller one whose float32 stores would fit
+    # 40 MB of the 50 MB L2
+    p384 = N.nr_code_params(1, 384)
+    m384 = (p384["Z"], p384["Nb"], Q.qc_rows(p384))
+    x384 = torch.as_tensor(np.clip(rng.randn(512, p384["Nb"] * p384["Z"]) * 2,
+                                   -500, 500).astype(np.float32), device=dev)
+    g384 = QK._graph(m384)
+    nr384 = {}
+    for io in ("f32", "bf16"):
+        qc_compare(torch, qc_tallies["qc_bp_streamed"], QK.qc_bp_streamed,
+                   QK.qc_bp_streamed_plain, x384, True, False,
+                   algorithm="MSA", n_iters=8, meta=m384, msg_io=io)
+        plan = QK.streamed_plan(g384["Z"], g384["Nb"], g384["kmax"],
+                                g384["E"], 512, io, sms)
+        in_l2 = 40 * 2 ** 20 // (plan["store_bytes"] // plan["grid"])
+        nr384[io] = {
+            "ms": cuda_ms(torch, lambda io=io: QK.qc_bp_streamed(
+                x384, "MSA", 8, m384, msg_io=io), 5),
+            "plan": k5_at_grid(torch, x384, m384, (), io, plan["grid"]),
+            "in_40mb_of_l2": k5_at_grid(torch, x384, m384, (), io,
+                                        min(plan["grid"], in_l2))}
+        print(f"K5 NR BG1 Z=384 B=512 {io} layered-8: {nr384[io]['ms']:.3f} "
+              f"ms a call; device time {nr384[io]['plan']['device_ms']:.3f} "
+              f"ms at the plan's {plan['grid']} blocks, "
+              f"{nr384[io]['in_40mb_of_l2']['device_ms']:.3f} ms at "
+              f"{nr384[io]['in_40mb_of_l2']['grid']}", flush=True)
+    timings["k5_nr_bg1_z384"] = nr384
+    # Path B end to end: the noisy decodes of the Path B phase, timed with
+    # CUDA events; K5 alone on the same input, its sweeps and its bound
+    path_b_t = {}
+    for io in ("f32", "bf16"):
+        for name, (cw, llr) in inputs.items():
+            prm = pd if name == "dvbs2" else pn
+            x = torch.as_tensor(llr, device=dev)
+            if name == "dvbs2":
+                def run(x=x, io=io):
+                    return D.dvbs2_decode_device(x, pd, "MSA", 8, msg_io=io)
+                q, k = pd["dvbs2"]["q"], pd["k_bits"]
+                x_qc = torch.cat([x[:, :k], D._parity_to_qc(x[:, k:], q,
+                                                            pd["Z"])], 1)
+            else:
+                def run(x=x, io=io):
+                    return Q.qc_bp_decode_device(x, pn, "MSA", 8,
+                                                 schedule="layered",
+                                                 msg_io=io)
+                x_qc = x
+            x_qc = torch.clamp(x_qc, -500, 500).contiguous()
+            meta = (prm["Z"], prm["Nb"], Q.qc_rows(prm))
+            pmk = Q._pos_masks(prm)
+            ms = cuda_ms(torch, run, 5)
+            kern_ms = device_ms(torch, lambda: QK.qc_bp_streamed(
+                x_qc, "MSA", 8, meta, pos_masks=pmk, msg_io=io), 5,
+                "qc_bp_streamed_kernel")
+            sweeps = sweeps_run(torch, prm, x_qc, 8, io)
+            edges = int(np.sum(np.asarray(prm["block_j"]) >= 0)) * prm["Z"]
+            bnd = qc_bound(512, x.shape[1], edges, sweeps,
+                           2 if io == "bf16" else 4)
+            path_b_t[f"{name}_{io}"] = {
+                "decode_ms": ms, "info_bits_per_s": 512 * prm["k_bits"]
+                / (ms * 1e-3), "k5_device_ms": kern_ms,
+                "k5_bound_ms": bound_ms(*bnd[:2])[0],
+                "sweeps_total": int(sweeps.sum()),
+                "sweeps_mean": float(sweeps.mean()),
+                "frames_converged": int((sweeps < 8).sum())}
+            t = path_b_t[f"{name}_{io}"]
+            print(f"Path B {name} {io} B=512 layered-8 at Eb/N0 2 dB: decode "
+                  f"{ms:.3f} ms, {t['info_bits_per_s']:.4g} info bits/s; K5 "
+                  f"{kern_ms:.3f} ms over {t['sweeps_total']} sweeps (mean "
+                  f"{t['sweeps_mean']:.2f}), bound {t['k5_bound_ms']:.4f} ms",
+                  flush=True)
+    report["path_b_timing"] = path_b_t
     ns_a = float(ldpc_link.noise_std_fn(10.0))
     gen.manual_seed(7)
     ldpc_link.link_step(gen, 512, ns_a)
@@ -1184,16 +1460,31 @@ def main():
             "T": T, "R": R, "variant": variant,
             "ms": cuda_ms(torch, lambda: BK.bcjr_appdiff(
                 syn, pan, li, trt, **kw), 10),
+            "device_ms": device_ms(torch, lambda: BK.bcjr_appdiff(
+                syn, pan, li, trt, **kw), 5, "bcjr_kernel"),
             "plain_ms": cuda_ms(torch, lambda: BK.bcjr_appdiff_plain(
                 syn, pan, li, trt, **kw), 1, warmup=0),
             "bound": k3_bound(T, R, 4, "exact", variant),
+            "plan_hist": BK.bcjr_plan(T, 4, R, sms)["hist"],
         }
         t = timings[f"k3_{key}"]
+        # each history placement, where shared memory holds it
+        for hist in ("shared", "global"):
+            try:
+                BK.bcjr_plan(T, 4, R, sms, hist)
+            except ValueError as e:
+                t[f"{hist}_device_ms"] = f"does not fit: {e}"
+                continue
+            t[f"{hist}_device_ms"] = device_ms(torch, lambda: k3_call(
+                torch, syn, pan, li, trt, hist, **kw), 5, "bcjr_kernel")
         b_ms, b_by = k3_bound_ms(*t["bound"][:3])
-        print(f"k3_{key} T={T} R={R}: {t['ms']:.3f} ms (plain "
-              f"{t['plain_ms']:.1f} ms), bound {b_ms:.4f} ms by {b_by}, "
-              f"history {t['bound'][3] / HBM_BYTES_PER_S * 1e3:.4f} ms",
-              flush=True)
+        print(f"k3_{key} T={T} R={R}: {t['ms']:.4f} ms a call, "
+              f"{t['device_ms']:.4f} ms of device time (plain "
+              f"{t['plain_ms']:.1f} ms; history in {t['plan_hist']} memory; "
+              f"device time with it shared {t['shared_device_ms']}, global "
+              f"{t['global_device_ms']}), bound "
+              f"{b_ms:.4f} ms by {b_by}, history "
+              f"{t['bound'][3] / HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
     # the turbo decoder at the JAX bench's configurations
     # (benchmarks/bench_all.py:135-177): randn frames, nv 0.5, 8 iterations
     rng = np.random.RandomState(15)
@@ -1279,38 +1570,56 @@ def main():
             "compared": qc_tallies[name].compared,
             "max_abs_err": qc_tallies[name].max_abs_err,
             "spa_max_rel_err": qc_tallies[name].spa_max_rel,
-            "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], "kernel_ms": t["ms"], "device_ms": t["device_ms"],
+            "ms_note": MS_NOTE, "plain_ms": t["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "store_bound_ms": store,
             "bound_note": "bound_ms counts LLRs in and outputs out; the "
             + ("c2v messages stay in shared memory" if store is None else
-               "message store is scratch of this design (every frame at "
-               "once), read and written once a sweep: store_bound_ms"),
+               "message store is scratch of this design (the frames in "
+               "flight's), read and written once a sweep: store_bound_ms is "
+               "its time were all of it to go to device memory"),
             "shape": shape, "frames_converged": t["frames_converged"],
-            "second_ms": other["ms"], "second_plain_ms": other["plain_ms"],
+            "second_ms": other["ms"], "second_device_ms": other["device_ms"],
+            "second_plain_ms": other["plain_ms"],
             "second_bound_ms": bound_ms(*other["bound"][:2])[0],
             "second_shape": "layered-8" if key == "k4_flooding15"
             else "bf16 store",
         })
+        if name == "qc_bp_streamed":
+            kernels[-1].update({
+                "redesigned": True,
+                "frames_per_sm_trade": t["frames_per_sm_trade"],
+                "second_frames_per_sm_trade": other["frames_per_sm_trade"],
+                "nr_bg1_z384": timings["k5_nr_bg1_z384"],
+                "path_b": path_b_t})
     t = timings["k3_nii"]
     b_ms, b_by = k3_bound_ms(*t["bound"][:3])
     extra = {}
     for key in ("whole_frame", "warmup_window"):
         o = timings[f"k3_{key}"]
-        extra.update({f"{key}_ms": o["ms"], f"{key}_plain_ms": o["plain_ms"],
+        extra.update({f"{key}_ms": o["ms"],
+                      f"{key}_device_ms": o["device_ms"],
+                      f"{key}_plain_ms": o["plain_ms"],
                       f"{key}_bound_ms": k3_bound_ms(*o["bound"][:3])[0],
                       f"{key}_shape": f"T={o['T']} R={o['R']} {o['variant']}"})
+    extra["hist_placement_device_ms"] = {
+        key: {k: timings[f"k3_{key}"][k]
+              for k in ("plan_hist", "shared_device_ms", "global_device_ms")}
+        for key in K3_BENCH}
     kernels.append(dict({
         "name": "bcjr_appdiff", "route": "cuda", "source": BCJR_SOURCE,
         "replaces": "commpy_tpu/kernels/bcjr.py:296", "launches": launches_c,
         "mismatches": k3_tally.mismatches, "compared": k3_tally.compared,
         "bit_diffs": k3_tally.bit_diffs, "max_abs_err": k3_tally.max_abs_err,
-        "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+        "ms": t["ms"], "kernel_ms": t["ms"], "device_ms": t["device_ms"],
+        "ms_note": MS_NOTE, "plain_ms": t["plain_ms"],
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "store_bound_ms": t["bound"][3] / HBM_BYTES_PER_S * 1e3,
         "bound_note": "bound_ms counts the streams in and e out once; the "
-        "alpha history is scratch of this design, written and read once: "
-        "store_bound_ms",
+        "history is scratch of this design, written and read once: "
+        "store_bound_ms, at device memory's rate",
+        "redesigned": True,
         "shape": "T=128 R=12288 S=4 boundary, log-MAP f32 (Path C: L=6144, "
                  "F=256, NII (128, 0))"}, **extra))
     report["kernels"] = kernels

@@ -31,13 +31,23 @@ The arithmetic is the Pallas kernel's:
 * ``io_dtype='bf16'`` rounds w1, w2 and li to bfloat16 on the way in and
   ``e`` on the way out.
 
+The kernel runs the forward and backward recursions at once, meeting in
+the middle: each stores its metrics for its first half of the frame, and
+after one barrier each goes on through the other half emitting ``e[t]``
+from the other's stored metrics, with the streams prefetched a few steps
+ahead.  Each direction of a lane is a group of S threads, one a state,
+exchanging metrics by warp shuffles; a block holds 32 lanes.  The
+``[T, S]`` history of a lane lives in shared memory or in a ``[T, R, S]``
+float32 scratch in device memory, as :func:`bcjr_plan` decides from the
+shapes.
+
 Dropped from the TPU wrapper, with the reason: ``lane_chunk`` and the
-(8, 128) folding (a TPU tile shape; here one thread owns one lane),
-``astride`` (it recomputed odd alphas when the history overflowed VMEM;
-the recomputed values equal the stored ones, and here the history lives
-in device memory, a ``[T, S, R]`` float32 scratch from ``torch.empty``),
-and ``_VMEM_BUDGET`` / ``bcjr_vmem_bytes`` (TPU VMEM sizing).  The guards
-stay: binary input, a power-of-two number of states and bijective
+(8, 128) folding (a TPU tile shape; here a thread owns a state of a
+lane in one direction), ``astride`` (it recomputed odd alphas when the
+history overflowed VMEM; the recomputed values equal the stored ones,
+and here the history goes to device memory when it does not fit shared
+memory), and ``_VMEM_BUDGET`` / ``bcjr_vmem_bytes`` (TPU VMEM sizing).
+The guards stay: binary input, a power-of-two number of states and bijective
 per-input state maps.  The CUDA kernel takes S <= 16 and raises beyond.
 """
 from __future__ import annotations
@@ -49,11 +59,13 @@ import numpy as np
 import torch
 
 from ..utils.device import device_constant
-from . import _build
+from . import H100_SMS, SM_SMEM, SMEM_LIMIT, SMEM_PER_BLOCK, _build, sm_count
 
-__all__ = ["bcjr_appdiff", "bcjr_appdiff_plain", "MAX_STATES"]
+__all__ = ["bcjr_appdiff", "bcjr_appdiff_plain", "bcjr_plan", "MAX_STATES"]
 
-MAX_STATES = 16  # the kernel holds a lane's state metrics in registers
+MAX_STATES = 16  # a thread a state: 32 lanes of 16 fill 1024 threads
+LANES = 32  # lanes a block, each with 2 S threads (a state a direction)
+MAX_BLOCKS_PER_SM = 32
 NEG = -1e30  # start metric of every state but 0
 _MODES = {"exact": 0, "maxlog": 1, "linear": 2}
 
@@ -64,9 +76,47 @@ def _lib() -> ctypes.CDLL:
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     ip = ctypes.POINTER(ctypes.c_int)
     lib.bcjr_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i,
-                                i, i, ip, ip, u, u, u, u, p]
+                                i, i, i, i, ip, ip, u, u, u, u, p]
     lib.bcjr_launch.restype = i
     return lib
+
+
+def bcjr_plan(T: int, S: int, R: int, sms: int = H100_SMS,
+              hist: str = None) -> dict:
+    """K3's launch plan: where the history lives, a pure function of the
+    shapes.
+
+    A block holds :data:`LANES` lanes, ``2 * S`` threads each; their
+    history takes ``T * S * LANES`` floats of shared memory.  It goes
+    there when that fits :data:`SMEM_LIMIT` and the blocks an SM can then
+    hold still take the whole grid (``ceil(R / LANES)`` blocks over
+    ``sms`` SMs) at once; otherwise it goes to a ``[T, R, S]`` float32
+    scratch in device memory (which lets an SM hold more blocks).
+    ``hist`` ("shared" or "global") fixes the choice instead, for
+    measuring it; "shared" raises ValueError when it does not fit.
+
+    Returns ``{"hist": "shared" | "global", "smem_bytes", "blocks",
+    "threads", "blocks_per_sm"}`` (threads a block; ``blocks_per_sm`` as
+    far as threads and shared memory allow).
+    """
+    shared = 4 * T * S * LANES
+    blocks = -(-R // LANES)
+    threads = 2 * S * LANES
+    # an SM runs at most 2048 threads and MAX_BLOCKS_PER_SM blocks
+    most = min(MAX_BLOCKS_PER_SM, 2048 // threads)
+    fits = shared <= SMEM_LIMIT
+    if hist is None:
+        per_sm = min(most, SM_SMEM // (shared + SMEM_PER_BLOCK))
+        hist = "shared" if fits and blocks <= per_sm * sms else "global"
+    elif hist == "shared" and not fits:
+        raise ValueError(f"a history of T={T}, S={S} takes {shared} bytes "
+                         f"of shared memory a block, {SMEM_LIMIT} available")
+    elif hist not in ("shared", "global"):
+        raise ValueError('hist must be None, "shared" or "global"')
+    smem = shared if hist == "shared" else 0
+    return {"hist": hist, "smem_bytes": smem, "blocks": blocks,
+            "threads": threads,
+            "blocks_per_sm": min(most, SM_SMEM // (smem + SMEM_PER_BLOCK))}
 
 
 @functools.lru_cache(maxsize=64)
@@ -163,10 +213,14 @@ def _prepare(syn, pan, li, trellis, max_log, valid, first, io_dtype,
         if tuple(valid.shape) != (T, R):
             raise ValueError(f"valid must be [{T}, {R}], got "
                              f"{tuple(valid.shape)}")
-        # the Pallas kernel reads the masks in the io type, > 0.5
-        valid = valid.to(io).float() > 0.5
-        first = (torch.ones(R, dtype=torch.bool, device=dev) if first is None
-                 else first.to(io).float() > 0.5)
+        # the Pallas kernel reads the masks in the io type, > 0.5 (which
+        # leaves a bool mask as it is)
+        if valid.dtype != torch.bool:
+            valid = valid.to(io).float() > 0.5
+        if first is None:
+            first = torch.ones(R, dtype=torch.bool, device=dev)
+        elif first.dtype != torch.bool:
+            first = first.to(io).float() > 0.5
         if tuple(first.shape) != (R,):
             raise ValueError(f"first must be [{R}], got {tuple(first.shape)}")
     a0 = bT = None
@@ -256,6 +310,18 @@ def _pack(bits) -> int:
     return int(sum(int(b) << s for s, b in enumerate(bits)))
 
 
+@functools.lru_cache(maxsize=64)
+def _launch_tables(trellis):
+    """The kernel's table arguments of ``trellis``: ``inv`` and ``nst`` as
+    input-major ctypes int arrays, then the which and neg bits of u = 0
+    and 1."""
+    inv, nst, which, sign = _w_tables(trellis)
+    tab = ctypes.c_int * inv.size
+    return (tab(*inv.T.reshape(-1).tolist()), tab(*nst.T.reshape(-1).tolist()),
+            _pack(which[0]), _pack(which[1]), _pack(sign[0] < 0),
+            _pack(sign[1] < 0))
+
+
 def bcjr_appdiff(syn, pan, li, trellis, max_log: bool = False, valid=None,
                  first=None, io_dtype: str = "f32", boundary=None,
                  lse: str = None, combined: bool = False,
@@ -288,7 +354,7 @@ def bcjr_appdiff(syn, pan, li, trellis, max_log: bool = False, valid=None,
     if syn.device.type != "cuda":
         raise ValueError(f"bcjr_appdiff runs on cuda or cpu, not "
                          f"{syn.device}")
-    mode, (inv, nst, which, sign), w1, w2, li_io, valid, first, a0, bT = \
+    mode, _, w1, w2, li_io, valid, first, a0, bT = \
         _prepare(syn, pan, li, trellis, max_log, valid, first, io_dtype,
                  boundary, lse, combined)
     T, R = syn.shape
@@ -296,7 +362,17 @@ def bcjr_appdiff(syn, pan, li, trellis, max_log: bool = False, valid=None,
     if S > MAX_STATES:
         raise NotImplementedError(
             f"the CUDA BCJR kernel takes S <= {MAX_STATES} states (got {S})")
-    dev = syn.device
+    return _bcjr_launch(trellis, mode, w1, w2, li_io, valid, first, a0, bT,
+                        li, boundary, posterior,
+                        bcjr_plan(T, S, R, sm_count(syn.device.index)))
+
+
+def _bcjr_launch(trellis, mode, w1, w2, li_io, valid, first, a0, bT, li,
+                 boundary, posterior, plan):
+    """Launch K3 on checked CUDA inputs (``_prepare``'s) by ``plan``."""
+    T, R = w1.shape
+    S = trellis.number_states
+    dev = w1.device
     w1, w2, li_io = w1.contiguous(), w2.contiguous(), li_io.contiguous()
     e = torch.empty((T, R), dtype=w1.dtype, device=dev)
     af = bf = None
@@ -304,24 +380,22 @@ def bcjr_appdiff(syn, pan, li, trellis, max_log: bool = False, valid=None,
         a0, bT = a0.contiguous(), bT.contiguous()
         af = torch.empty((S, R), dtype=torch.float32, device=dev)
         bf = torch.empty((S, R), dtype=torch.float32, device=dev)
-    if valid is not None:
-        valid = valid.to(torch.uint8).contiguous()
-        first = first.to(torch.uint8).contiguous()
+    if valid is not None:  # bool, stored as one byte of 0 or 1
+        valid = valid.contiguous().view(torch.uint8)
+        first = first.contiguous().view(torch.uint8)
     variant = 2 if boundary is not None else (1 if valid is not None else 0)
     if T and R:
-        hist = torch.empty((T, S, R), dtype=torch.float32, device=dev)
-        tab = (ctypes.c_int * (2 * S))
+        shared = plan["hist"] == "shared"
+        hist = None if shared else torch.empty((T, R, S), dtype=torch.float32,
+                                               device=dev)
         ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
         with torch.cuda.device(dev):
             rc = _lib().bcjr_launch(
                 w1.data_ptr(), w2.data_ptr(), li_io.data_ptr(), ptr(valid),
                 ptr(first), ptr(a0), ptr(bT), e.data_ptr(), ptr(af), ptr(bf),
-                hist.data_ptr(), T, R, S, _MODES[mode], variant,
-                int(w1.dtype == torch.bfloat16),
-                tab(*inv.T.reshape(-1).tolist()),
-                tab(*nst.T.reshape(-1).tolist()),
-                _pack(which[0]), _pack(which[1]), _pack(sign[0] < 0),
-                _pack(sign[1] < 0),
+                ptr(hist), T, R, S, _MODES[mode], variant,
+                int(w1.dtype == torch.bfloat16), int(shared),
+                plan["smem_bytes"], *_launch_tables(trellis),
                 torch.cuda.current_stream(dev).cuda_stream)
         if rc:
             raise RuntimeError(f"bcjr_appdiff kernel launch failed: CUDA "

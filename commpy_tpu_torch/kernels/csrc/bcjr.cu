@@ -7,8 +7,9 @@
 //    decoding) or a window of one (warmup-windowed and NII decoding).
 //
 // The Python wrapper (kernels/bcjr.py) checks shapes and types, builds the
-// w-streams and the state tables, and holds the plain PyTorch version this
-// kernel must match bit for bit.
+// w-streams and the state tables, plans the launch (bcjr_plan: where the
+// history lives) and holds the plain PyTorch version this kernel must
+// match bit for bit.
 //
 // Layouts (row-major, contiguous):
 //   w1, w2, li [T, R]  float32 or bfloat16 (io_bf16): (sy+pa)/nv, (sy-pa)/nv
@@ -21,32 +22,49 @@
 //   e          [T, R]  io type: app1 - app0, the u=1 prior included
 //   af, bf     [S, R]  float32, boundary variant: final alpha, and the beta
 //                      after the backward pass's last step (t = 0)
-//   hist       [T, S, R] float32 scratch: the pre-update alpha of each step
+//   hist       [T, R, S] float32 scratch in device memory, when the plan
+//                      does not keep the history in shared memory
 //
 // Branch metric into state s under input u: sign[u][s] * w_{which[u][s]},
 // plus li for u = 1.  Forward: cand_u = alpha[inv_nst[u][s]] + g_u[s],
 // alpha' = lse2(cand_0, cand_1).  Backward: cand_u[s] = (beta + g_u)[nst[u]
 // [s]], beta' = lse2(cand_0, cand_1), e[t] = reduce(al + cand_1) -
-// reduce(al + cand_0), the state reduction halving contiguously (s pairs
-// with s + S/2 first).  No per-step normalisation.
+// reduce(al + cand_0), al the alpha before step t and beta the beta after
+// the backward steps past t, the state reduction halving contiguously (s
+// pairs with s + S/2 first).  No per-step normalisation.
 //
 // What bounds it on an H100: at the NII bench shape (T=128, R=12288, S=4,
 // f32) the function reads 19.3 MB of streams and carries and writes 6.7 MB
 // of e and carries (7.8 us at 3.35 TB/s), and its exact log-sum-exps need
 // ~44M exp and log1p on the special-function units (16 per SM per clock:
-// ~11 us): microseconds either way.  The real limit of this design is
-// the dependency chain: each of a lane's 2T steps needs the previous step's
-// metrics, so the card is filled with lanes, not steps, and a step costs
-// the latency of its loads and of its log-sum-exp chain.  The design does
-// the simple thing first: one thread per lane, lanes adjacent in r so that
-// every [T, R] load and store is coalesced; 32 lanes a block, so even
-// R = 4096 spreads over 128 blocks; the S state metrics in registers
-// (templated on S = 2, 4, 8, 16); the state permutations, which are data
-// (the trellis tables), read through the thread's own column of shared
-// memory (no barrier: no thread reads another's column); the alpha
-// history in device memory (16.8 MB at T=256, R=4096; 25 MB at the NII
-// shape; both under the 50 MB L2).  The time it takes is recorded in
-// PERF.md.
+// 10.5 us): bound by operations, at microseconds.  What limits a kernel is
+// the dependency chain: each step of a recursion needs the previous one's
+// metrics, so a step costs the latency of its log-sum-exps, and the card
+// can only be filled with lanes (R) and states.  The design:
+//   * forward and backward at once, meeting in the middle: in the first
+//     half the forward threads run steps 0 .. T/2-1 storing each pre-step
+//     alpha, and the backward threads run steps T-1 .. T/2 storing each
+//     pre-step beta; after one barrier each goes on through the other
+//     half, emitting e[t] from the other's stored metrics.  A lane's chain
+//     falls from 2T steps to T;
+//   * a thread per state: each direction of a lane is a group of S
+//     threads in one warp, thread s holding alpha[s] or beta[s].  The
+//     state permutations, which are data (the trellis tables), are warp
+//     shuffles, and e's two state reductions share one pass: the lower
+//     half of a group reduces app0 and the upper half app1.  A step's
+//     chain is one log-sum-exp in the first half and 1 + log2(S) in the
+//     second, and a lane has 2S threads to fill the card with;
+//   * stream prefetch: each thread loads w1, w2, li (and valid) 4 steps
+//     ahead (2 where S >= 8) into a register ring, and in the second half
+//     the other direction's stored metric of its state too, so no step
+//     waits on a load;
+//   * 32 lanes a block (64 S threads); the history, [T, S] floats a lane,
+//     in shared memory when it fits and the blocks it leaves an SM still
+//     hold the grid at once, else in device memory ([T, R, S] scratch);
+//     bcjr_plan chooses and the kernel is templated on it;
+//   * lanes adjacent in r, states adjacent within a lane, so every load
+//     and store of a warp is one or a few contiguous runs.
+// The times it takes are recorded in PERF.md.
 //
 // Numerics: compiled with -fmad=false, so every add and multiply rounds on
 // its own, in the plain version's order; lse2 is fmaxf, fabsf, expf and
@@ -58,7 +76,7 @@
 
 namespace {
 
-constexpr int kLanes = 32;  // threads (lanes) per block
+constexpr int kLanes = 32;  // lanes per block
 constexpr int kMaxStates = 16;
 constexpr float kNeg = -1e30f;
 
@@ -70,6 +88,21 @@ struct Tables {
   unsigned char nst[2][kMaxStates];  // nst[u][s]: the state s leaves to on u
   unsigned int which[2];             // bit s: the branch into s reads w2
   unsigned int neg[2];               // bit s: ... and is negated
+};
+
+struct Args {
+  const void* w1;
+  const void* w2;
+  const void* li;
+  const uint8_t* valid;
+  const uint8_t* first;
+  const float* a0;
+  const float* bT;
+  void* e;
+  float* af;
+  float* bf;
+  float* hist;
+  int T, R, io_bf16;
 };
 
 template <int MODE>
@@ -94,184 +127,265 @@ __device__ __forceinline__ void store(void* p, size_t i, float v, bool bf16) {
   }
 }
 
-// sign[u][s] * w_{which[u][s]}: a select and a negation, both exact
-__device__ __forceinline__ float metric(const Tables& tb, int u, int s,
-                                        float x1, float x2) {
-  const float w = (tb.which[u] >> s) & 1u ? x2 : x1;
-  return (tb.neg[u] >> s) & 1u ? -w : w;
-}
+// One step's inputs, fetched kAhead<S> steps before it runs; `hv` holds the
+// other direction's stored metric of this thread's state in the second
+// half.
+struct Item {
+  float x1, x2, l, hv;
+  bool ok;
+};
 
-template <int S, int MODE, int VARIANT>
-__global__ void __launch_bounds__(kLanes)
-bcjr_kernel(const void* __restrict__ w1, const void* __restrict__ w2,
-            const void* __restrict__ li, const uint8_t* __restrict__ valid,
-            const uint8_t* __restrict__ first, const float* __restrict__ a0,
-            const float* __restrict__ bT, void* __restrict__ e,
-            float* __restrict__ af, float* __restrict__ bf,
-            float* __restrict__ hist, int T, int R, int io_bf16,
-            Tables tb) {
-  // col[k][lane]: this lane's metrics, re-read through a table index
-  __shared__ float col[2 * S][kLanes];
-  const int lane = threadIdx.x;
-  const int r = blockIdx.x * kLanes + lane;
-  if (r >= R) return;  // no barrier follows, so idle lanes may leave
-  const bool bf16 = io_bf16 != 0;
+// steps of prefetch: 4, or 2 where S >= 8 threads a lane leave a thread
+// fewer registers (the 512- and 1024-thread blocks)
+template <int S>
+constexpr int kAhead = S >= 8 ? 2 : 4;
+constexpr unsigned kFull = 0xffffffffu;
 
-  float a[S];
-  if (VARIANT == kBoundary) {
+// Runs body(i, item) for i = 0 .. n-1, fetch(i) having been issued P
+// steps earlier into a register ring.
+template <int P, typename Fetch, typename Body>
+__device__ __forceinline__ void pipelined(int n, Fetch fetch, Body body) {
+  Item ring[P];
 #pragma unroll
-    for (int s = 0; s < S; ++s) a[s] = a0[(size_t)s * R + r];
-  } else {
-    const bool exact = VARIANT == kPlain || first[r] != 0;
-#pragma unroll
-    for (int s = 0; s < S; ++s) a[s] = (s > 0 && exact) ? kNeg : 0.0f;
+  for (int j = 0; j < P; ++j) {
+    if (j < n) ring[j] = fetch(j);
   }
-
-  // ---- forward: store the pre-update metrics, then step ----
-  for (int t = 0; t < T; ++t) {
-    const size_t row = (size_t)t * R + r;
-    const float x1 = load(w1, row, bf16);
-    const float x2 = load(w2, row, bf16);
-    const float l = load(li, row, bf16);
-    float* h = hist + (size_t)t * S * R + r;
+  for (int i = 0; i < n; i += P) {
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      h[(size_t)s * R] = a[s];
-      col[s][lane] = a[s];
-    }
-    float na[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const float g0 = metric(tb, 0, s, x1, x2);
-      const float g1 = metric(tb, 1, s, x1, x2) + l;
-      na[s] = lse2<MODE>(col[tb.inv[0][s]][lane] + g0,
-                         col[tb.inv[1][s]][lane] + g1);
-    }
-    if (VARIANT != kMasked || valid[row] != 0) {
-#pragma unroll
-      for (int s = 0; s < S; ++s) a[s] = na[s];
-    }
-  }
-  if (VARIANT == kBoundary) {
-#pragma unroll
-    for (int s = 0; s < S; ++s) af[(size_t)s * R + r] = a[s];
-  }
-
-  // ---- backward: emit e[t] from the stored alpha, then step ----
-  float b[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    b[s] = VARIANT == kBoundary ? bT[(size_t)s * R + r] : 0.0f;
-  }
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t row = (size_t)t * R + r;
-    const float x1 = load(w1, row, bf16);
-    const float x2 = load(w2, row, bf16);
-    const float l = load(li, row, bf16);
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      col[s][lane] = b[s] + metric(tb, 0, s, x1, x2);
-      col[S + s][lane] = b[s] + (metric(tb, 1, s, x1, x2) + l);
-    }
-    const float* h = hist + (size_t)t * S * R + r;
-    float nb[S], p0[S], p1[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const float c0 = col[tb.nst[0][s]][lane];
-      const float c1 = col[S + tb.nst[1][s]][lane];
-      nb[s] = lse2<MODE>(c0, c1);
-      const float al = h[(size_t)s * R];
-      p0[s] = al + c0;
-      p1[s] = al + c1;
-    }
-#pragma unroll
-    for (int half = S / 2; half >= 1; half /= 2) {
-#pragma unroll
-      for (int s = 0; s < half; ++s) {
-        p0[s] = lse2<MODE>(p0[s], p0[s + half]);
-        p1[s] = lse2<MODE>(p1[s], p1[s + half]);
+    for (int j = 0; j < P; ++j) {
+      if (i + j < n) {
+        const Item cur = ring[j];
+        if (i + j + P < n) ring[j] = fetch(i + j + P);
+        body(i + j, cur);
       }
     }
-    store(e, row, p1[0] - p0[0], bf16);
-    if (VARIANT != kMasked || valid[row] != 0) {
-#pragma unroll
-      for (int s = 0; s < S; ++s) b[s] = nb[s];
-    }
-  }
-  if (VARIANT == kBoundary) {
-#pragma unroll
-    for (int s = 0; s < S; ++s) bf[(size_t)s * R + r] = b[s];
   }
 }
 
+// t[s] of a per-state table row, for a run-time s, without indexing
+template <int S>
+__device__ __forceinline__ int pick(const unsigned char (&t)[kMaxStates],
+                                    int s) {
+  int v = 0;
+#pragma unroll
+  for (int k = 0; k < S; ++k) v = k == s ? t[k] : v;
+  return v;
+}
+
+// reduce_s(p1) - reduce_s(p0) over the S threads of a group (thread s
+// holding p0[s], p1[s]), halving contiguously as the plain version does:
+// the first level pairs p0[s] with p0[s + S/2] in the lower half of the
+// group and p1[s - S/2] with p1[s] in the upper half, after which both
+// halves reduce alike.  Valid in the group's thread 0.
 template <int S, int MODE>
-cudaError_t launch_mode(int variant, dim3 grid, cudaStream_t stream,
-                        const void* w1, const void* w2, const void* li,
-                        const uint8_t* valid, const uint8_t* first,
-                        const float* a0, const float* bT, void* e, float* af,
-                        float* bf, float* hist, int T, int R, int io_bf16,
-                        const Tables& tb) {
-  switch (variant) {
-    case kPlain:
-      bcjr_kernel<S, MODE, kPlain><<<grid, kLanes, 0, stream>>>(
-          w1, w2, li, valid, first, a0, bT, e, af, bf, hist, T, R, io_bf16,
-          tb);
-      break;
-    case kMasked:
-      bcjr_kernel<S, MODE, kMasked><<<grid, kLanes, 0, stream>>>(
-          w1, w2, li, valid, first, a0, bT, e, af, bf, hist, T, R, io_bf16,
-          tb);
-      break;
-    case kBoundary:
-      bcjr_kernel<S, MODE, kBoundary><<<grid, kLanes, 0, stream>>>(
-          w1, w2, li, valid, first, a0, bT, e, af, bf, hist, T, R, io_bf16,
-          tb);
-      break;
-    default:
-      return cudaErrorInvalidValue;
+__device__ __forceinline__ float appdiff(float p0, float p1, int s) {
+  constexpr int h = S / 2;
+  const bool lower = s < h;
+  const float got = __shfl_xor_sync(kFull, lower ? p1 : p0, h);
+  float v = lse2<MODE>(lower ? p0 : got, lower ? got : p1);
+#pragma unroll
+  for (int o = h / 2; o >= 1; o /= 2) {
+    v = lse2<MODE>(v, __shfl_xor_sync(kFull, v, o));
   }
+  return __shfl_xor_sync(kFull, v, h) - v;
+}
+
+// A block holds kLanes lanes: for each, S forward threads (one a state)
+// and S backward threads.  Thread (lane, s) of a direction is number
+// lane * S + s of it, so a warp holds 32 / S whole lanes.
+template <int S, int MODE, int VARIANT, bool SHARED>
+__global__ void __launch_bounds__(2 * kLanes * S)
+    bcjr_kernel(Args g, Tables tb) {
+  // the history, when SHARED: [T][kLanes][S], a thread's own slot a step
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x;
+  const bool fwd = tid < kLanes * S;
+  const int d = fwd ? tid : tid - kLanes * S;  // index within the direction
+  const int lane = d / S;
+  const int s = d % S;
+  const int base = (tid & 31) - s;  // warp lane of the group's state 0
+  const int r = blockIdx.x * kLanes + lane;
+  const bool live = r < g.R;
+  const int T = g.T, R = g.R;
+  const int h = T / 2;  // the forward half: steps 0 .. h-1
+  const bool bf16 = g.io_bf16 != 0;
+  float* hp = SHARED ? smem + d : g.hist + (size_t)r * S + s;
+  const size_t h_t = SHARED ? (size_t)kLanes * S : (size_t)R * S;
+  // this state's table entries and branch bits
+  const int inv0 = base + pick<S>(tb.inv[0], s);
+  const int inv1 = base + pick<S>(tb.inv[1], s);
+  const int nst0 = base + pick<S>(tb.nst[0], s);
+  const int nst1 = base + pick<S>(tb.nst[1], s);
+  const bool w2_0 = (tb.which[0] >> s) & 1u, w2_1 = (tb.which[1] >> s) & 1u;
+  const bool ng_0 = (tb.neg[0] >> s) & 1u, ng_1 = (tb.neg[1] >> s) & 1u;
+
+  auto fetch_at = [&](int t) {
+    Item it;
+    const size_t row = (size_t)t * R + r;
+    it.x1 = live ? load(g.w1, row, bf16) : 0.f;
+    it.x2 = live ? load(g.w2, row, bf16) : 0.f;
+    it.l = live ? load(g.li, row, bf16) : 0.f;
+    it.ok = VARIANT != kMasked || (live && g.valid[row] != 0);
+    it.hv = 0.f;
+    return it;
+  };
+  auto fetch_hist_at = [&](int t) {
+    Item it = fetch_at(t);
+    if (live) it.hv = hp[t * h_t];
+    return it;
+  };
+  // g0, g1: the branch metrics into this state under u = 0, 1
+  auto branch0 = [&](const Item& x) {
+    const float w = w2_0 ? x.x2 : x.x1;
+    return ng_0 ? -w : w;
+  };
+  auto branch1 = [&](const Item& x) {
+    const float w = w2_1 ? x.x2 : x.x1;
+    return (ng_1 ? -w : w) + x.l;
+  };
+  // alpha <- lse2(alpha[inv0] + g0, alpha[inv1] + g1) where ok
+  auto alpha_step = [&](float& a, float g0, float g1, bool ok) {
+    const float na = lse2<MODE>(__shfl_sync(kFull, a, inv0) + g0,
+                                __shfl_sync(kFull, a, inv1) + g1);
+    if (ok) a = na;
+  };
+
+  // m: alpha[s] in the forward threads, beta[s] in the backward ones
+  float m;
+  if (fwd) {
+    if (VARIANT == kBoundary) {
+      m = live ? g.a0[(size_t)s * R + r] : 0.f;
+    } else {
+      const bool exact = VARIANT == kPlain || (live && g.first[r] != 0);
+      m = (s > 0 && exact) ? kNeg : 0.0f;
+    }
+  } else {
+    m = VARIANT == kBoundary && live ? g.bT[(size_t)s * R + r] : 0.0f;
+  }
+
+  // ---- first half: store each pre-step metric, then step ----
+  if (fwd) {
+    pipelined<kAhead<S>>(h, fetch_at, [&](int t, const Item& x) {
+      if (live) hp[t * h_t] = m;
+      alpha_step(m, branch0(x), branch1(x), x.ok);
+    });
+  } else {
+    pipelined<kAhead<S>>(T - h, [&](int i) { return fetch_at(T - 1 - i); },
+              [&](int i, const Item& x) {
+                if (live) hp[(T - 1 - i) * h_t] = m;
+                // cand_u = (beta + g_u)[nst[u][s]]
+                const float c0 = __shfl_sync(kFull, m + branch0(x), nst0);
+                const float c1 = __shfl_sync(kFull, m + branch1(x), nst1);
+                const float nb = lse2<MODE>(c0, c1);
+                if (x.ok) m = nb;
+              });
+  }
+  __syncthreads();  // every stored metric of the first half is in place
+
+  // ---- second half: emit e[t] from the other direction's metrics ----
+  if (fwd) {
+    pipelined<kAhead<S>>(T - h, [&](int i) { return fetch_hist_at(h + i); },
+              [&](int i, const Item& x) {
+                const int t = h + i;
+                const float g0 = branch0(x), g1 = branch1(x);
+                const float c0 = __shfl_sync(kFull, x.hv + g0, nst0);
+                const float c1 = __shfl_sync(kFull, x.hv + g1, nst1);
+                const float e = appdiff<S, MODE>(m + c0, m + c1, s);
+                if (live && s == 0) store(g.e, (size_t)t * R + r, e, bf16);
+                alpha_step(m, g0, g1, x.ok);
+              });
+    if (VARIANT == kBoundary && live) g.af[(size_t)s * R + r] = m;
+  } else {
+    pipelined<kAhead<S>>(h, [&](int i) { return fetch_hist_at(h - 1 - i); },
+              [&](int i, const Item& x) {
+                const int t = h - 1 - i;
+                const float c0 = __shfl_sync(kFull, m + branch0(x), nst0);
+                const float c1 = __shfl_sync(kFull, m + branch1(x), nst1);
+                const float e = appdiff<S, MODE>(x.hv + c0, x.hv + c1, s);
+                if (live && s == 0) store(g.e, (size_t)t * R + r, e, bf16);
+                const float nb = lse2<MODE>(c0, c1);
+                if (x.ok) m = nb;
+              });
+    if (VARIANT == kBoundary && live) g.bf[(size_t)s * R + r] = m;
+  }
+}
+
+template <int S, int MODE, int VARIANT, bool SHARED>
+cudaError_t launch_one(const Args& a, const Tables& tb, int smem_bytes,
+                       cudaStream_t stream) {
+  auto* kernel = bcjr_kernel<S, MODE, VARIANT, SHARED>;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((a.R + kLanes - 1) / kLanes);
+  kernel<<<grid, 2 * kLanes * S, smem_bytes, stream>>>(a, tb);
   return cudaGetLastError();
 }
 
-template <int S>
-cudaError_t launch_states(int mode, int variant, dim3 grid,
-                          cudaStream_t stream, const void* w1, const void* w2,
-                          const void* li, const uint8_t* valid,
-                          const uint8_t* first, const float* a0,
-                          const float* bT, void* e, float* af, float* bf,
-                          float* hist, int T, int R, int io_bf16,
-                          const Tables& tb) {
-  switch (mode) {
-    case kExact:
-      return launch_mode<S, kExact>(variant, grid, stream, w1, w2, li, valid,
-                                    first, a0, bT, e, af, bf, hist, T, R,
-                                    io_bf16, tb);
-    case kMaxLog:
-      return launch_mode<S, kMaxLog>(variant, grid, stream, w1, w2, li, valid,
-                                     first, a0, bT, e, af, bf, hist, T, R,
-                                     io_bf16, tb);
-    case kLinear:
-      return launch_mode<S, kLinear>(variant, grid, stream, w1, w2, li, valid,
-                                     first, a0, bT, e, af, bf, hist, T, R,
-                                     io_bf16, tb);
+template <int S, int MODE, bool SHARED>
+cudaError_t launch_variant(int variant, const Args& a, const Tables& tb,
+                           int smem_bytes, cudaStream_t stream) {
+  switch (variant) {
+    case kPlain:
+      return launch_one<S, MODE, kPlain, SHARED>(a, tb, smem_bytes, stream);
+    case kMasked:
+      return launch_one<S, MODE, kMasked, SHARED>(a, tb, smem_bytes, stream);
+    case kBoundary:
+      return launch_one<S, MODE, kBoundary, SHARED>(a, tb, smem_bytes,
+                                                    stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+template <int S, bool SHARED>
+cudaError_t launch_mode(int mode, int variant, const Args& a,
+                        const Tables& tb, int smem_bytes,
+                        cudaStream_t stream) {
+  switch (mode) {
+    case kExact:
+      return launch_variant<S, kExact, SHARED>(variant, a, tb, smem_bytes,
+                                               stream);
+    case kMaxLog:
+      return launch_variant<S, kMaxLog, SHARED>(variant, a, tb, smem_bytes,
+                                                stream);
+    case kLinear:
+      return launch_variant<S, kLinear, SHARED>(variant, a, tb, smem_bytes,
+                                                stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <int S>
+cudaError_t launch_states(int mode, int variant, int shared_hist,
+                          const Args& a, const Tables& tb, int smem_bytes,
+                          cudaStream_t stream) {
+  return shared_hist
+             ? launch_mode<S, true>(mode, variant, a, tb, smem_bytes, stream)
+             : launch_mode<S, false>(mode, variant, a, tb, smem_bytes,
+                                     stream);
 }
 
 }  // namespace
 
 // inv and nst are [2][S] host arrays (input-major); which and neg hold one
-// bit per destination state for each input.
+// bit per destination state for each input.  shared_hist and smem_bytes
+// come from the launch plan (kernels/bcjr.py:bcjr_plan); hist is null when
+// the history lives in shared memory.
 extern "C" int bcjr_launch(const void* w1, const void* w2, const void* li,
                            const uint8_t* valid, const uint8_t* first,
                            const float* a0, const float* bT, void* e,
                            float* af, float* bf, float* hist, int T, int R,
                            int S, int mode, int variant, int io_bf16,
-                           const int* inv, const int* nst, unsigned which0,
-                           unsigned which1, unsigned neg0, unsigned neg1,
-                           void* stream) {
-  if (S < 2 || S > kMaxStates || (S & (S - 1))) {
+                           int shared_hist, int smem_bytes, const int* inv,
+                           const int* nst, unsigned which0, unsigned which1,
+                           unsigned neg0, unsigned neg1, void* stream) {
+  if (S < 2 || S > kMaxStates || (S & (S - 1)) || T < 1 || R < 1 ||
+      (!shared_hist && hist == nullptr) ||
+      smem_bytes < (shared_hist ? (int)sizeof(float) * T * S * kLanes : 0)) {
     return (int)cudaErrorInvalidValue;
   }
   Tables tb = {};
@@ -285,29 +399,26 @@ extern "C" int bcjr_launch(const void* w1, const void* w2, const void* li,
   tb.which[1] = which1;
   tb.neg[0] = neg0;
   tb.neg[1] = neg1;
-  const dim3 grid((R + kLanes - 1) / kLanes);
+  const Args a{w1, w2, li, valid, first, a0, bT, e, af, bf, hist, T, R,
+               io_bf16};
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   switch (S) {
     case 2:
-      err = launch_states<2>(mode, variant, grid, st, w1, w2, li, valid,
-                             first, a0, bT, e, af, bf, hist, T, R, io_bf16,
-                             tb);
+      err = launch_states<2>(mode, variant, shared_hist, a, tb, smem_bytes,
+                             st);
       break;
     case 4:
-      err = launch_states<4>(mode, variant, grid, st, w1, w2, li, valid,
-                             first, a0, bT, e, af, bf, hist, T, R, io_bf16,
-                             tb);
+      err = launch_states<4>(mode, variant, shared_hist, a, tb, smem_bytes,
+                             st);
       break;
     case 8:
-      err = launch_states<8>(mode, variant, grid, st, w1, w2, li, valid,
-                             first, a0, bT, e, af, bf, hist, T, R, io_bf16,
-                             tb);
+      err = launch_states<8>(mode, variant, shared_hist, a, tb, smem_bytes,
+                             st);
       break;
     default:
-      err = launch_states<16>(mode, variant, grid, st, w1, w2, li, valid,
-                              first, a0, bT, e, af, bf, hist, T, R, io_bf16,
-                              tb);
+      err = launch_states<16>(mode, variant, shared_hist, a, tb, smem_bytes,
+                              st);
       break;
   }
   return (int)err;

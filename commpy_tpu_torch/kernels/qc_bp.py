@@ -9,14 +9,22 @@ the same inputs, outputs and order of float operations and is what the
 kernel is held against on the card.
 
 The TPU kernels kept a 128-frame lane chunk in VMEM and rolled [Z, 128]
-tiles along sublanes.  Here one CUDA block decodes one frame:
+tiles along sublanes.  Here a CUDA block decodes a frame at a time:
 
 * K4 keeps the frame's channel LLRs, totals and every check-to-variable
   message (``nnz * Z`` float32) in dynamic shared memory, which holds
-  every 802.11n code and WiMAX 1440 (at most ~44 KB a frame);
-* K5 keeps only the totals there (64.8 KB at n = 16200) and streams each
-  check block row's messages from a frame-major store in device memory
-  (float32 or bfloat16), for the DVB-S2 and NR BG1 class codes.
+  every 802.11n code and WiMAX 1440 (at most ~44 KB a frame), one block
+  per frame;
+* K5, for the DVB-S2 and NR class codes, keeps the totals there (64.8 KB
+  at n = 16200) and the messages in a store in device memory (float32 or
+  bfloat16).  Its launch plan (:func:`streamed_plan`, a pure function of
+  the code's sizes, the batch and the store type) runs a persistent grid
+  of as many blocks as the SMs hold at once (two a SM at the DVB-S2-class
+  code, whose float32 stores then pass the 50 MB L2), each block decoding
+  frames in turn with a store slice of its own.  While a check block row computes, ``cp.async``
+  brings the next row's messages into a two-slot ring in shared memory;
+  the row's messages stay in registers (a compile-time row bound of 8, 16
+  or 32 blocks), and a row with no repeated column needs one barrier.
 
 The base graph is passed as small int tables, so nothing is compiled per
 code.  Both loop until the frame's syndrome passes or ``n_iters``
@@ -57,16 +65,23 @@ import numpy as np
 import torch
 
 from ..utils.device import device_constant
-from . import _build
+from . import (H100_SMS, SM_SMEM, SMEM_LIMIT, SMEM_PER_BLOCK, _build,
+               sm_count)
 
 __all__ = ["qc_bp_resident", "qc_bp_resident_plain", "qc_bp_streamed",
            "qc_bp_streamed_plain", "resident_smem_bytes",
-           "streamed_smem_bytes", "sign_keep_zero", "SMEM_LIMIT",
-           "MAX_ROW_BLOCKS", "LLR_MAX"]
+           "streamed_smem_bytes", "streamed_plan", "sign_keep_zero",
+           "SMEM_LIMIT", "MAX_ROW_BLOCKS", "LLR_MAX"]
 
-SMEM_LIMIT = 232_448  # dynamic shared memory one H100 block may opt into
 MAX_ROW_BLOCKS = 32  # widest check block row the CUDA kernels hold
 MAX_Z = 1024  # the layered sweep gives each circulant position a thread
+MAX_Z_STREAMED = 512  # K5's block size bound (128 registers a thread)
+STREAMED_KMAX = (8, 16, 32)  # K5's compile-time row bounds
+# registers a thread of K5 takes at each row bound (the most of its f32
+# and bf16 instantiations in the -Xptxas -v report for sm_90a)
+STREAMED_REGS = {8: 72, 16: 128, 32: 128}
+SM_REGS = 65_536  # registers of one H100 SM
+SM_BLOCKS = 32  # resident blocks one H100 SM holds at most
 LLR_MAX = 500.0  # reference ldpc.py:11 clipping
 _BIG = 3e38  # empty leave-one-out minimum (the Pallas kernels' constant)
 _MASKED_V2C = 1e30  # v2c of a masked edge position: neutral in SPA and MSA
@@ -78,9 +93,63 @@ def resident_smem_bytes(n: int, Z: int, nnz: int) -> int:
     return 4 * nnz * Z + 8 * n
 
 
-def streamed_smem_bytes(n: int) -> int:
-    """Shared memory of one K5 block: the frame's totals."""
-    return 4 * n
+def _streamed_sizes(Z: int, msg_io: str):
+    """(Zp, bytes per stored message): K5 strides a block's messages by
+    Zp = Z rounded up to 8, so that every row is 16-byte aligned."""
+    if msg_io not in ("f32", "bf16"):
+        raise ValueError('msg_io must be "f32" or "bf16"')
+    return -(-Z // 8) * 8, 2 if msg_io == "bf16" else 4
+
+
+def streamed_smem_bytes(Z: int, Nb: int, kmax: int, E: int,
+                        msg_io: str = "f32") -> int:
+    """Shared memory of one K5 block: the frame's totals (n float32,
+    padded to 4), the two-slot ring of a row's messages (``2 * kmax * Zp``
+    in the store's type) and the edge table (E int32)."""
+    Zp, tb = _streamed_sizes(Z, msg_io)
+    n4 = -(-Nb * Z // 4) * 4
+    return 4 * n4 + 2 * kmax * Zp * tb + 4 * E
+
+
+def streamed_plan(Z: int, Nb: int, kmax: int, E: int, B: int,
+                  msg_io: str = "f32", sms: int = H100_SMS) -> dict:
+    """K5's launch plan, a pure function of the code's sizes, the batch
+    and the store type.
+
+    Frames per SM: as many blocks as the SM holds at once by its shared
+    memory and its registers (:data:`STREAMED_REGS` a thread), at least
+    1.  The grid is ``min(B, frames_per_sm * sms)`` blocks, each decoding
+    frames b, b + grid, ... with a store slice of its own: a batch that
+    is not a multiple of the grid leaves a tail of at most one frame a
+    block.  The stores of the frames in flight may pass the L2: at the
+    DVB-S2-class code two float32 frames a SM (66.5 MB of stores) ran
+    faster than the one that keeps them in the 50 MB L2 (PERF.md).
+
+    Returns Zp, kmax_t (the compile-time row bound), threads, smem_bytes,
+    frames_per_sm, grid, store_bytes (of the frames in flight) and
+    store_elems.  Raises ValueError when one frame's totals and ring
+    exceed :data:`SMEM_LIMIT`.
+    """
+    Zp, tb = _streamed_sizes(Z, msg_io)
+    smem = streamed_smem_bytes(Z, Nb, kmax, E, msg_io)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"QC code too large even for the streamed kernel ({smem} bytes "
+            f"of totals and message ring per frame, {SMEM_LIMIT} "
+            f"available); use backend='torch'")
+    kmax_t = next((k for k in STREAMED_KMAX if kmax <= k), None)
+    if kmax_t is None:
+        raise ValueError(f"check block rows of {kmax} blocks exceed "
+                         f"{STREAMED_KMAX[-1]}")
+    threads = -(-Z // 32) * 32
+    by_smem = SM_SMEM // (smem + SMEM_PER_BLOCK)
+    by_regs = SM_REGS // (STREAMED_REGS[kmax_t] * threads)
+    frames_per_sm = max(1, min(by_smem, by_regs, SM_BLOCKS))
+    grid = max(1, min(B, frames_per_sm * sms))
+    return {"Zp": Zp, "kmax_t": kmax_t, "threads": threads,
+            "smem_bytes": smem, "frames_per_sm": frames_per_sm,
+            "grid": grid, "store_bytes": grid * E * Zp * tb,
+            "store_elems": grid * E * Zp}
 
 
 @functools.lru_cache(maxsize=64)
@@ -137,11 +206,24 @@ def _graph(meta, pos_masks=()):
             if not (0 <= i < Mb and 0 <= k < len(rows[i])):
                 raise ValueError(f"pos_masks entry ({i}, {k}) names no block")
             keep[row_start[i] + k, list(excluded)] = 0
+    rep = np.zeros(E, np.int64)
+    row5 = np.zeros(Mb, np.int64)
+    keep5 = None if keep is None else np.zeros((Mb, Z), np.uint32)
+    for i in range(Mb):
+        e0, e1 = row_start[i], row_start[i + 1]
+        for e in range(e0, e1):
+            rep[e] = ej[e] in ej[e0:e]
+            if keep5 is not None:
+                keep5[i] |= keep[e].astype(np.uint32) << np.uint32(e - e0)
+        row5[i] = e0 | (e1 - e0) << 16 | int(rep[e0:e1].any()) << 31
+    edge5 = (ej * Z) << 11 | rep << 10 | es
     return {"Z": Z, "Nb": Nb, "Mb": Mb, "E": E, "kmax": kmax, "ej": ej,
             "es": es, "row_start": row_start, "col_start": col_start,
             "col_edges": col_edges, "vidx": vidx, "inv": inv,
             "inv_ok": inv_ok, "row_edges": row_edges, "slot": slot,
-            "keep": keep}
+            "keep": keep, "edge5": edge5.astype(np.int32),
+            "row5": row5.astype(np.uint32).view(np.int32),
+            "keep5": None if keep5 is None else keep5.view(np.int32)}
 
 
 def _on(g, name, dev, dtype=None):
@@ -348,29 +430,28 @@ def _lib() -> ctypes.CDLL:
     lib.qc_bp_resident_launch.argtypes = [p, p, p, *graph, i, i, i, i, f, f,
                                           p]
     lib.qc_bp_resident_launch.restype = i
-    lib.qc_bp_streamed_launch.argtypes = [p, p, p, p, *graph, i, i, i, i, f,
-                                          f, p]
+    lib.qc_bp_streamed_launch.argtypes = [p, p, p, p, p, p, p, *[i] * 14,
+                                          f, f, p]
     lib.qc_bp_streamed_launch.restype = i
     return lib
 
 
-def _graph_args(g, dev, keep=False):
-    """Pointers and sizes of the graph tables on ``dev`` (int32)."""
+def _graph_args(g, dev):
+    """Pointers and sizes of K4's graph tables on ``dev`` (int32; no keep
+    table: K4 takes no position masks)."""
     tabs = [_on(g, name, dev, np.int32)
             for name in ("ej", "es", "row_start", "col_start", "col_edges")]
-    k = _on(g, "keep", dev) if (keep and g["keep"] is not None) else None
-    ptrs = [t.data_ptr() for t in tabs] + [None if k is None
-                                           else k.data_ptr()]
-    return ptrs + [g["Z"], g["Nb"], g["Mb"], g["E"]]
+    return [t.data_ptr() for t in tabs] + [None, g["Z"], g["Nb"], g["Mb"],
+                                           g["E"]]
 
 
-def _check_cuda(llr, g, name):
+def _check_cuda(llr, g, name, max_z=MAX_Z):
     if llr.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {llr.device}")
-    if g["kmax"] > MAX_ROW_BLOCKS or g["Z"] > MAX_Z:
+    if g["kmax"] > MAX_ROW_BLOCKS or g["Z"] > max_z:
         raise NotImplementedError(
             f"the CUDA {name} kernel takes check block rows of at most "
-            f"{MAX_ROW_BLOCKS} blocks and Z <= {MAX_Z} (got "
+            f"{MAX_ROW_BLOCKS} blocks and Z <= {max_z} (got "
             f"{g['kmax']} blocks, Z={g['Z']})")
     if not llr.is_contiguous():
         raise ValueError("llr must be contiguous")
@@ -422,39 +503,53 @@ def qc_bp_streamed(llr: torch.Tensor, algorithm: str, n_iters: int, meta,
                    msa_scale: float = 1.0, msa_offset: float = 0.0,
                    pos_masks=(), msg_io: str = "f32"):
     """Streamed layered QC BP (K5): returns (dec ``[B, n]`` int8,
-    posterior ``[B, n]`` float32).  CUDA tensors launch the kernel, with
-    a ``[B, nnz*Z]`` message store (float32, or bfloat16 for
-    ``msg_io='bf16'``) from ``torch.empty``; CPU tensors run
-    :func:`qc_bp_streamed_plain`.  Raises ``ValueError`` when even the
-    totals exceed :data:`SMEM_LIMIT`."""
+    posterior ``[B, n]`` float32).  CUDA tensors launch the kernel by
+    :func:`streamed_plan`, with a message store (float32, or bfloat16 for
+    ``msg_io='bf16'``) for the frames in flight from ``torch.empty``; CPU
+    tensors run :func:`qc_bp_streamed_plain`.  Raises ``ValueError`` when
+    a frame's totals and message ring exceed :data:`SMEM_LIMIT`."""
     _check(llr, algorithm, meta, n_iters)
-    if msg_io not in ("f32", "bf16"):
-        raise ValueError('msg_io must be "f32" or "bf16"')
     g = _graph(meta, tuple(pos_masks))
-    need = streamed_smem_bytes(g["Nb"] * g["Z"])
+    need = streamed_smem_bytes(g["Z"], g["Nb"], g["kmax"], g["E"], msg_io)
     if need > SMEM_LIMIT:
         raise ValueError(
             f"QC code too large even for the streamed kernel ({need} bytes "
-            f"of totals per frame, {SMEM_LIMIT} available); use "
-            f"backend='torch'")
+            f"of totals and message ring per frame, {SMEM_LIMIT} "
+            f"available); use backend='torch'")
     if llr.device.type == "cpu":
         return qc_bp_streamed_plain(llr, algorithm, n_iters, meta, msa_scale,
                                     msa_offset, pos_masks, msg_io)
-    _check_cuda(llr, g, "qc_bp_streamed")
+    _check_cuda(llr, g, "qc_bp_streamed", MAX_Z_STREAMED)
+    sms = sm_count(llr.device.index)
+    plan = streamed_plan(g["Z"], g["Nb"], g["kmax"], g["E"], llr.shape[0],
+                         msg_io, sms)
+    return _streamed_launch(llr, g, algorithm, n_iters, msa_scale,
+                            msa_offset, msg_io, plan)
+
+
+def _streamed_launch(llr, g, algorithm, n_iters, msa_scale, msa_offset,
+                     msg_io, plan):
+    """Launch K5 on ``llr`` (a checked CUDA tensor) by ``plan``."""
     B, n = llr.shape
-    dec = torch.empty((B, n), dtype=torch.int8, device=llr.device)
-    out = torch.empty((B, n), dtype=torch.float32, device=llr.device)
-    store = torch.empty((B, g["E"] * g["Z"]), device=llr.device,
+    dev = llr.device
+    dec = torch.empty((B, n), dtype=torch.int8, device=dev)
+    out = torch.empty((B, n), dtype=torch.float32, device=dev)
+    store = torch.empty(plan["store_elems"], device=dev,
                         dtype=torch.bfloat16 if msg_io == "bf16"
                         else torch.float32)
     if B:
-        with torch.cuda.device(llr.device):
+        keep = None if g["keep5"] is None else _on(g, "keep5", dev)
+        with torch.cuda.device(dev):
             rc = _lib().qc_bp_streamed_launch(
                 llr.data_ptr(), dec.data_ptr(), out.data_ptr(),
-                store.data_ptr(), *_graph_args(g, llr.device, keep=True), B,
-                int(n_iters), int(algorithm == "SPA"),
+                store.data_ptr(), _on(g, "edge5", dev).data_ptr(),
+                _on(g, "row5", dev).data_ptr(),
+                None if keep is None else keep.data_ptr(), g["Z"],
+                plan["Zp"], g["Nb"], g["Mb"], g["E"], g["kmax"],
+                plan["kmax_t"], B, plan["grid"], plan["threads"],
+                plan["smem_bytes"], int(n_iters), int(algorithm == "SPA"),
                 int(msg_io == "bf16"), float(msa_scale), float(msa_offset),
-                torch.cuda.current_stream(llr.device).cuda_stream)
+                torch.cuda.current_stream(dev).cuda_stream)
         if rc:
             raise RuntimeError(f"qc_bp_streamed kernel launch failed: CUDA "
                                f"error {rc}")

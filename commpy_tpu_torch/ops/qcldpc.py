@@ -28,8 +28,9 @@ import functools
 import numpy as np
 import torch
 
-from ..kernels.qc_bp import (LLR_MAX, SMEM_LIMIT, qc_bp_resident,
-                             qc_bp_streamed, resident_smem_bytes,
+from ..kernels.qc_bp import (LLR_MAX, MAX_Z_STREAMED, SMEM_LIMIT,
+                             qc_bp_resident, qc_bp_streamed,
+                             resident_smem_bytes,
                              sign_keep_zero, streamed_smem_bytes)
 from ..utils.device import device_constant, on_device, resolve_device
 
@@ -747,17 +748,21 @@ def select_backend(qc_params: dict, schedule: str = "flooding") -> str:
     totals fit in the shared memory one block may use
     (:func:`~commpy_tpu_torch.kernels.qc_bp.resident_smem_bytes`) and the
     code has no per-position edge masks; else ``'streamed'`` (K5) for
-    the layered schedule when the totals fit; else ``'torch'``, the plain
+    the layered schedule when its totals and two-slot message ring fit
+    (:func:`~commpy_tpu_torch.kernels.qc_bp.streamed_smem_bytes`, float32
+    messages) and Z <= 512; else ``'torch'``, the plain
     core, as the JAX package takes its XLA core past its kernels'
     budgets.  A pure function of the code: the same on every device.
     """
     Z, Nb = int(qc_params["Z"]), int(qc_params["Nb"])
     n = Nb * Z
-    nnz = int(np.sum(np.asarray(qc_params["block_j"]) >= 0))
+    row_blocks = np.sum(np.asarray(qc_params["block_j"]) >= 0, axis=1)
+    nnz, kmax = int(row_blocks.sum()), int(row_blocks.max())
     if (not qc_params.get("pos_masks")
             and resident_smem_bytes(n, Z, nnz) <= SMEM_LIMIT):
         return "resident"
-    if schedule == "layered" and streamed_smem_bytes(n) <= SMEM_LIMIT:
+    if (schedule == "layered" and Z <= MAX_Z_STREAMED
+            and streamed_smem_bytes(Z, Nb, kmax, nnz) <= SMEM_LIMIT):
         return "streamed"
     return "torch"
 

@@ -663,9 +663,10 @@ def _turbo_iterations_cuda(sys_symbols, non_sys_symbols_1, non_sys_symbols_2,
 
 def _cuda_bcjr_fits(trellis: Trellis) -> bool:
     """Whether K3 takes this trellis: binary input, a power-of-two number
-    of states and bijective per-input state maps.  (The history lives in
-    device memory, so there is no size limit to check; past
-    ``MAX_STATES`` the CUDA kernel raises rather than route away.)"""
+    of states and bijective per-input state maps.  (The history goes to
+    device memory when shared memory cannot hold it, so there is no size
+    limit to check; past ``MAX_STATES`` the CUDA kernel raises rather than
+    route away.)"""
     S = trellis.number_states
     if trellis.number_inputs != 2 or (S & (S - 1)):
         return False

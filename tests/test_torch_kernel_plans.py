@@ -1,0 +1,177 @@
+"""Launch plans of the redesigned kernels, checked on the CPU.
+
+K5 (``kernels/qc_bp.py:streamed_plan``) must fit the shared memory of an
+H100 block and the shared memory and registers of an SM, with a message
+store for its frames in flight, for every code the repository has;
+``select_backend`` must
+route every code as before; K5's packed tables must say what the graph
+says; K3 (``kernels/bcjr.py:bcjr_plan``) must place the history where the
+bench shapes need it.  Pure functions: no JAX, no kernel.
+"""
+import os
+
+import numpy as np
+import pytest
+
+from commpy_tpu_torch.kernels import bcjr as BK
+from commpy_tpu_torch.kernels import qc_bp as K
+from commpy_tpu_torch.ops import dvbs2 as PD
+from commpy_tpu_torch.ops import ldpc as PL
+from commpy_tpu_torch.ops import nrldpc as PN
+from commpy_tpu_torch.ops import qcldpc as PQ
+
+
+def _code(name):
+    kind, *rest = name.split("-")
+    if kind == "80211n":
+        return PQ.ieee80211n_params(int(rest[0]), rest[1])
+    if kind == "wimax":
+        return PL._maybe_qc_params(PL.get_ldpc_code_params(
+            os.path.join(PL.DESIGNS, "wimax", "1440.720.txt")))
+    if kind == "dvbs2":
+        n = int(rest[0])
+        return PD.dvbs2_qc_params(PD.synthetic_address_table(n, "1/2"), n,
+                                  "1/2")
+    return PN.nr_code_params(int(rest[0][2:]), int(rest[1]))
+
+
+# every code of the repository and how backend='auto' routes it
+# (flooding, layered), as it did before K5's redesign
+ROUTES = {f"80211n-{n}-{r}": ("resident", "resident")
+          for (n, r) in sorted(PQ.IEEE80211N_BASE)}
+ROUTES.update({
+    "wimax-1440": ("resident", "resident"),
+    "dvbs2-16200": ("torch", "streamed"),
+    "dvbs2-64800": ("torch", "torch"),
+    "nr-bg1-208": ("torch", "streamed"),
+    "nr-bg1-384": ("torch", "streamed"),
+    "nr-bg2-208": ("torch", "streamed"),
+    "nr-bg2-384": ("torch", "streamed"),
+})
+
+
+@pytest.mark.parametrize("name", sorted(ROUTES))
+def test_select_backend_routes_every_code_as_before(name):
+    p = _code(name)
+    assert (PQ.select_backend(p, "flooding"),
+            PQ.select_backend(p, "layered")) == ROUTES[name]
+
+
+def _graph(p):
+    return K._graph((p["Z"], p["Nb"], PQ.qc_rows(p)), PQ._pos_masks(p))
+
+
+@pytest.mark.parametrize("msg_io", ["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(n for n, r in ROUTES.items()
+                                        if n != "dvbs2-64800"))
+def test_streamed_plan_fits_shared_memory_and_registers(name, msg_io):
+    g = _graph(_code(name))
+    for B in (1, 397, 512, 4096):
+        plan = K.streamed_plan(g["Z"], g["Nb"], g["kmax"], g["E"], B, msg_io)
+        assert plan["smem_bytes"] <= K.SMEM_LIMIT == 232_448
+        # the SM holds its blocks at once: each reserves 1 KB of shared
+        # memory besides its own, and its threads' registers
+        fps = plan["frames_per_sm"]
+        assert 1 <= fps <= K.SM_BLOCKS
+        assert fps * (plan["smem_bytes"] + 1024) <= K.SM_SMEM
+        assert (fps * plan["threads"] * K.STREAMED_REGS[plan["kmax_t"]]
+                <= K.SM_REGS == 65_536)
+        assert plan["grid"] == min(B, fps * 132)
+        assert plan["Zp"] % 8 == 0 and g["Z"] <= plan["Zp"] < g["Z"] + 8
+        assert plan["kmax_t"] in K.STREAMED_KMAX and g["kmax"] <= \
+            plan["kmax_t"]
+        # the store holds the frames in flight, not all B
+        assert plan["store_elems"] == plan["grid"] * g["E"] * plan["Zp"]
+        assert plan["store_bytes"] == plan["store_elems"] * (
+            2 if msg_io == "bf16" else 4)
+        assert plan["threads"] % 32 == 0 and plan["threads"] >= g["Z"]
+
+
+def test_streamed_plan_frames_in_flight_at_the_bench_code():
+    # DVB-S2-class 16200: shared memory holds two float32 blocks (85.7 KB
+    # each) or three bfloat16 ones (75.6 KB) an SM, and 72 registers a
+    # thread two 384-thread blocks; 252 KB of float32 messages a frame
+    g = _graph(_code("dvbs2-16200"))
+    args = (g["Z"], g["Nb"], g["kmax"], g["E"])
+    f32 = K.streamed_plan(*args, 512, "f32")
+    bf16 = K.streamed_plan(*args, 512, "bf16")
+    assert (f32["frames_per_sm"], f32["grid"]) == (2, 264)
+    assert (bf16["frames_per_sm"], bf16["grid"]) == (2, 264)
+    assert f32["store_bytes"] == 2 * bf16["store_bytes"] == 264 * 252_000
+    assert K.streamed_plan(*args, 397, "bf16")["grid"] == 264
+    assert K.streamed_plan(*args, 1, "f32")["grid"] == 1
+    assert K.streamed_plan(*args, 512, "f32", sms=114)["grid"] == 228
+    # NR BG1 at Z=384: one 175 KB block an SM, every SM busy
+    g = _graph(_code("nr-bg1-384"))
+    nr = K.streamed_plan(g["Z"], g["Nb"], g["kmax"], g["E"], 512, "f32")
+    assert (nr["frames_per_sm"], nr["grid"]) == (1, 132)
+    with pytest.raises(ValueError, match="too large even for the streamed"):
+        g = _graph(_code("dvbs2-64800"))
+        K.streamed_plan(g["Z"], g["Nb"], g["kmax"], g["E"], 8, "f32")
+
+
+@pytest.mark.parametrize("meta", [
+    (64, 12, (((0, 0), (1, 3), (0, 17), (2, 5)),
+              ((2, 1), (3, 0), (4, 9), (3, 33)), ((4, 2), (5, 7), (6, 0)),
+              ((6, 11), (7, 4), (8, 0), (6, 40), (7, 1)),
+              ((8, 5), (9, 0), (10, 3)), ((10, 8), (11, 0), (9, 21)),
+              ((11, 13),))),
+    "dvbs2-16200", "nr-bg1-208"], ids=["repeat-col", "dvbs2", "nr-bg1"])
+def test_streamed_packed_tables_say_what_the_graph_says(meta):
+    if isinstance(meta, str):
+        p = _code(meta)
+        g = _graph(p)
+    else:
+        g = K._graph(meta)
+    Z, E = g["Z"], g["E"]
+    edge = g["edge5"].astype(np.int64)
+    assert np.array_equal(edge >> 11, g["ej"] * Z)
+    assert np.array_equal(edge & 1023, g["es"])
+    row = g["row5"].view(np.uint32).astype(np.int64)
+    assert np.array_equal(row & 0xFFFF, g["row_start"][:-1])
+    assert np.array_equal((row >> 16) & 0x7FFF, np.diff(g["row_start"]))
+    for i in range(g["Mb"]):
+        e0, e1 = g["row_start"][i], g["row_start"][i + 1]
+        js = list(g["ej"][e0:e1])
+        rep = [js[k] in js[:k] for k in range(len(js))]
+        assert list((edge[e0:e1] >> 10) & 1) == rep
+        assert bool(row[i] >> 31) == any(rep)
+        if g["keep"] is not None:
+            bits = g["keep5"].view(np.uint32)[i]
+            for k in range(e1 - e0):
+                assert np.array_equal((bits >> k) & 1, g["keep"][e0 + k])
+    assert (g["keep5"] is None) == (g["keep"] is None)
+    assert E == len(edge)
+
+
+@pytest.mark.parametrize("T,R,hist", [
+    (128, 12288, "shared"),   # NII (128, 0), L=6144, B=256: Path C
+    (256, 4096, "shared"),    # whole frame, L=256, B=4096
+    (320, 6144, "global"),    # warmup window (256, 32), L=6144, B=256
+])
+def test_bcjr_plan_at_the_bench_shapes(T, R, hist):
+    plan = BK.bcjr_plan(T, 4, R)
+    assert plan["hist"] == hist
+    # the history: 64 KB, 128 KB and 160 KB at 32 lanes, S = 4
+    shared = BK.bcjr_plan(T, 4, R, hist="shared")["smem_bytes"]
+    assert shared == {128: 65_536, 256: 131_072, 320: 163_840}[T]
+    assert shared <= BK.SMEM_LIMIT
+    assert plan["threads"] == 2 * 4 * 32 and plan["blocks"] == R // 32
+    # shared memory holds all the grid at once, or the plan goes global
+    if hist == "shared":
+        assert plan["blocks"] <= plan["blocks_per_sm"] * 132
+    else:
+        assert plan["blocks"] > (BK.SM_SMEM // (shared + 1024)) * 132
+        assert plan["smem_bytes"] == 0
+
+
+def test_bcjr_plan_sends_s16_at_t320_to_device_memory():
+    for R in (96, 6144):
+        assert BK.bcjr_plan(320, 16, R)["hist"] == "global"
+    with pytest.raises(ValueError, match="shared memory"):
+        BK.bcjr_plan(320, 16, 96, hist="shared")
+    with pytest.raises(ValueError, match="hist must be"):
+        BK.bcjr_plan(32, 4, 96, hist="l2")
+    # short frames of every state count fit
+    for S in (2, 4, 8, 16):
+        assert BK.bcjr_plan(33, S, 130)["hist"] == "shared"

@@ -158,12 +158,13 @@ def test_routing_table():
         assert PQ.select_backend(p, "flooding") == flooding
         assert PQ.select_backend(p, "layered") == layered
     # the sizes of the table: 802.11n 1944 ~41-44 KB, WiMAX 30 KB,
-    # DVB-S2-class 16200 totals 64.8 KB, DVB-S2 64800 totals 259 KB
+    # DVB-S2-class 16200 totals 64.8 KB with a 20.2 KB message ring (rows
+    # of 7 blocks, Z=360) and 0.7 KB of edges, DVB-S2 64800 totals 259 KB
     p = PQ.ieee80211n_params(1944, "1/2")
     nnz = int((p["block_j"] >= 0).sum())
     assert 41_000 <= K.resident_smem_bytes(1944, 81, nnz) <= 45_000
-    assert K.streamed_smem_bytes(16200) == 64_800
-    assert K.streamed_smem_bytes(64800) > K.SMEM_LIMIT
+    assert K.streamed_smem_bytes(360, 45, 7, 175) == 64_800 + 20_160 + 700
+    assert K.streamed_smem_bytes(360, 180, 7, 630) > K.SMEM_LIMIT
 
 
 def test_resident_rejects_oversize_codes():
