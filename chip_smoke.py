@@ -7,9 +7,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
 2. builds the CUDA kernels from ``commpy_tpu_torch/kernels/csrc``;
 3. holds each kernel against its plain PyTorch version on the card, bit
    for bit: the bench shape (K=7 soft, B=2048, L=1024, tb_depth=30), the
-   802.11 MCS-4 shape (B=2048, L=1200) and small odd shapes (S = 2, 4,
-   64, 256, 1024; hard, soft and unquantized; B not a multiple of 32),
-   where the plain versions also run on the host CPU;
+   802.11 MCS-4 shape (B=2048, L=1200) and small odd shapes (S = 2, 4, 8,
+   16, 32 and 64 on the ACS kernel's warp layout, 128, 256 and 1024 on its
+   block layout; n = 1, 2, 3 and 8; hard, soft and unquantized; B not a
+   multiple of the frames a warp, T not a multiple of 32), received words
+   all zero (every step a tie) and with -0.0 entries, where the plain
+   versions also run on the host CPU; prints the registers, stack and
+   spills of every kernel from ``-Xptxas -v``;
 4. runs the main path: the 802.11 MCS-4 link (16-QAM, rate 3/4,
    frame_bits=1200) at F=2048 frames per step at 12 dB through
    ``montecarlo_ber``, plus the physics checks (uncoded QPSK BER against
@@ -18,9 +22,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    counters must rise during this phase;
 5. holds the QC-LDPC kernels against their plain versions: the resident
    kernel K4 on all twelve 802.11n codes and WiMAX 1440 (lifted to QC
-   form), MSA and SPA, flooding and layered, msa_scale=0.75, B = 3, 37
-   and 512 with clean lanes, +-0.0 LLRs and lanes that converge at
-   different iterations; the streamed layered kernel K5 on the
+   form), MSA and SPA, flooding and layered, msa_scale=0.75, B = 1, 3,
+   37, 397 and 512 with clean lanes, +-0.0 LLRs and lanes that converge
+   at different iterations, and two synthetic codes whose checks or
+   circulant positions exceed a block's threads (each thread loops); the
+   streamed layered kernel K5 on the
    DVB-S2-class (16200, 7200) code with its wrap-edge pos_masks, NR BG1
    at Z=208 (rows of up to 24 blocks) and the 802.11n 648 code, B = 1,
    3, 37, 397 (no multiple of the frames in flight) and 512, and two
@@ -57,16 +63,25 @@ Run from the root of a checkout:  python3 chip_smoke.py
    2.0 dB, all with their BER at 1.5 dB reported; max-log with
    ``ext_scale=0.7`` beating 1.0 at 0 dB);
 10. times each kernel and its plain version with CUDA events (the Viterbi
-   decoder at the bench configuration and the MCS-4 link step; K4 at
-   B=512 MSA-15 flooding and layered-8; K5 at B=512 layered-8, float32
-   and bfloat16; K3 at its three bench shapes), K4's, K5's and K3's
-   device time with torch.profiler beside it (K5 at 1, 2 and 3 frames
+   decoder at the bench configuration and the MCS-4 link step; K1 and K2
+   at the MCS-4 and bench shapes, K1 also by device time; K4 at B=512
+   MSA-15 flooding and layered-8, also after 0, 1 and 2 sweeps; K5 at
+   B=512 layered-8, float32 and bfloat16; K3 at its three bench shapes),
+   K4's, K5's and K3's device time with torch.profiler beside it (K5 at
+   1, 2 and 3 frames
    per SM and after 0, 1 and 2 sweeps, and on NR BG1 Z=384, held to its
    plain version there, at the plan's grid and at one whose stores fit
    the L2; K3 with each history placement), Path B's noisy
    decodes end to end (info bits/s, K5's sweeps, its time and bound),
    the turbo decoder at the JAX bench's configurations, and the Path A
    and Path C link steps, with their profiles.
+
+With ``--ab DIR`` (a checkout of another commit, e.g. the parent unpacked
+with ``git archive``), it also loads that checkout's ``commpy_tpu_torch``
+under another name, builds its kernels there, and times its K1 and K4,
+and the MCS-4 and Path A link steps, beside this tree's on the same
+inputs in turns (other, this, this, other), holding the two trees'
+outputs equal.
 
 Exits non-zero, with no result line, when there is no CUDA device or the
 port cannot be imported, and on any failed check.  The last line is
@@ -138,18 +153,72 @@ def device_ms(torch, fn, reps, kernel):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us, n = 0.0, 0
-    for e in prof.key_averages():
-        if kernel in e.key:
-            us += _device_us(e, "self_")
-            n += e.count
-    if not n or not us:
-        fail(f"the profiler saw no device time of {kernel}")
-    return us / n / 1e3
+    # a profile now and then comes back without the kernels' records (the
+    # launches ran: their outputs are held elsewhere); three profiles
+    # without them fail the run
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for e in prof.key_averages():
+            if kernel in e.key:
+                us += _device_us(e, "self_")
+                n += e.count
+        if n and us:
+            return us / n / 1e3
+    fail(f"the profiler saw no device time of {kernel}")
+
+
+KERNEL_NAMES = ("acs_warp_kernel", "acs_forward_kernel", "traceback_kernel",
+                "qc_bp_resident_kernel", "qc_bp_streamed_kernel",
+                "bcjr_kernel")
+
+
+def ptxas_report(paths):
+    """Registers, stack and spill bytes of every compiled kernel, from the
+    ``-Xptxas -v`` log beside each library: ``{kernel: [{"entry",
+    "registers", "stack", "spill_stores", "spill_loads"}, ...]}``, one
+    entry per template instantiation."""
+    import re
+
+    out = {}
+    for path in paths.values():
+        log = path.with_suffix(".log")
+        if not log.exists():
+            continue
+        cur = None
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = next((k for k in KERNEL_NAMES if k in m.group(1)),
+                            None)
+                cur = {"entry": m.group(1)} if name else None
+                if cur is not None:
+                    out.setdefault(name, []).append(cur)
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                cur.update(stack=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return out
+
+
+def regs_summary(entries):
+    """"R-R registers, stack S, spills P" over a kernel's instantiations."""
+    regs = [e.get("registers", 0) for e in entries]
+    return (f"{min(regs)}-{max(regs)} registers, stack up to "
+            f"{max(e.get('stack', 0) for e in entries)} bytes, spills up to "
+            f"{max(e.get('spill_stores', 0) for e in entries)} bytes "
+            f"({len(entries)} instantiations)")
 
 
 def k1_bound(B, T, n, S):
@@ -457,9 +526,29 @@ def qc_compare(torch, tally, kernel, plain, llr, exact, on_cpu, **kw):
     return got
 
 
+def k4_synthetic():
+    """Codes no standard has, for K4's loops: Mb*Z = 1536 checks past a
+    block's 1024 threads (flooding loops), and rows of 17 blocks (the
+    512-thread row bound of 32) at Z = 640 (both schedules loop).  Random
+    shifts from a fixed seed; every column has a block."""
+    rng = np.random.RandomState(77)
+
+    def code(Z, Nb, rows):
+        return (Z, Nb, tuple(tuple((j, int(rng.randint(Z))) for j in r)
+                             for r in rows))
+    return {
+        "loop-z256": code(256, 12, [[0, 1, 2, 6], [2, 3, 4, 7], [4, 5, 0, 8],
+                                    [6, 7, 9, 1], [8, 9, 10, 3],
+                                    [10, 11, 5, 9]]),
+        "wide-z640": code(640, 18, [list(range(17)),
+                                    [17] + list(range(16))]),
+    }
+
+
 def k4_parity(torch, tally, codes):
     """The resident kernel against its plain version on every 802.11n
-    code and WiMAX 1440."""
+    code and WiMAX 1440 (B = 1, 3, 37, 397 and 512), and the synthetic
+    codes of :func:`k4_synthetic`."""
     from commpy_tpu_torch.kernels import qc_bp as Q
     from commpy_tpu_torch.ops.qcldpc import qc_rows
 
@@ -469,25 +558,32 @@ def k4_parity(torch, tally, codes):
                 ("MSA", "flooding", 0.75), ("MSA", "layered", 0.75)]
     big = {"80211n-1944-1/2": variants, "80211n-648-5/6": variants[:1],
            "80211n-1296-2/3": variants[1:2], "wimax-1440": variants[:1]}
-    seed = 1000
+    cases = []
     for name, (p, make) in codes.items():
         if name.startswith(("dvbs2", "nr")):
             continue
         meta = (p["Z"], p["Nb"], qc_rows(p))
         rate = p["k_bits"] / p["n_vnodes"]
-        for B in (3, 37, 512):
-            for alg, sched, sc in (variants if B < 512 else big.get(name,
-                                                                    [])):
-                seed += 1
-                rng = np.random.RandomState(seed)
-                llr = torch.as_tensor(qc_case_llr(
-                    make(B, rng), rate, seed, 0.5 if alg == "MSA" else 2.0),
-                    device=dev)
-                qc_compare(torch, tally, Q.qc_bp_resident,
-                           Q.qc_bp_resident_plain, llr, alg == "MSA",
-                           B <= 64 and alg == "MSA", algorithm=alg,
-                           n_iters=8, meta=meta, schedule=sched,
-                           msa_scale=sc)
+        for B in (1, 3, 37, 397, 512):
+            vs = (variants if B in (3, 37) else variants[:2] if B in (1, 397)
+                  else big.get(name, []))
+            cases += [(meta, rate, make, B, v) for v in vs]
+    for meta in k4_synthetic().values():
+        n = meta[0] * meta[1]
+        make = (lambda B, rng, n=n: np.zeros((B, n), np.int8))
+        cases += [(meta, 0.5, make, 3, v) for v in variants[:4]]
+        cases += [(meta, 0.5, make, 37, v) for v in variants[:2]]
+    seed = 1000
+    for meta, rate, make, B, (alg, sched, sc) in cases:
+        seed += 1
+        rng = np.random.RandomState(seed)
+        llr = torch.as_tensor(qc_case_llr(
+            make(B, rng), rate, seed, 0.5 if alg == "MSA" else 2.0),
+            device=dev)
+        qc_compare(torch, tally, Q.qc_bp_resident, Q.qc_bp_resident_plain,
+                   llr, alg == "MSA", B <= 64 and alg == "MSA",
+                   algorithm=alg, n_iters=8, meta=meta, schedule=sched,
+                   msa_scale=sc)
 
 
 K5_VARIANTS = [("MSA", "f32", 1.0), ("MSA", "bf16", 1.0),
@@ -851,6 +947,65 @@ def k3_bound_ms(nbytes, flops, sfu):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def load_other_port(root):
+    """``commpy_tpu_torch`` of the checkout at ``root``, imported as the
+    package ``other_port`` (its kernels build under ``root/build``): its
+    ACS and QC BP kernel modules and its link models."""
+    import importlib
+    import importlib.util
+
+    pkg = os.path.join(os.path.abspath(root), "commpy_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "other_port", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["other_port"] = mod
+    spec.loader.exec_module(mod)
+    return (importlib.import_module("other_port.kernels.viterbi_acs"),
+            importlib.import_module("other_port.kernels.qc_bp"),
+            importlib.import_module("other_port.models"))
+
+
+def host_ms(torch, fn, reps):
+    """Mean wall time of ``fn`` in ms on the host clock, over ``reps``
+    calls after one, ending in ``torch.cuda.synchronize()``."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def ab_compare(torch, runs):
+    """Each of ``runs`` ({name: (kernel name or None, this tree's call, the
+    other tree's call)}) timed in turns, other, this, this, other, the two
+    trees' outputs held equal: a kernel by device time (torch.profiler)
+    and CUDA events a call, a link step (kernel name None) by the host
+    clock."""
+    out = {}
+    for name, (kname, mine, other) in runs.items():
+        a, b = mine(), other()
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail(f"A/B {name}: the two trees' outputs differ")
+        rec = {}
+        for who, fn in (("other", other), ("this", mine), ("this", mine),
+                        ("other", other)):
+            if kname is None:
+                rec.setdefault(f"{who}_host_ms", []).append(
+                    host_ms(torch, fn, 5))
+                continue
+            rec.setdefault(f"{who}_device_ms", []).append(
+                device_ms(torch, fn, 10, kname))
+            rec.setdefault(f"{who}_ms", []).append(cuda_ms(torch, fn, 10))
+        out[name] = rec
+        print(f"A/B {name}: " + "; ".join(f"{k} {v}" for k, v in rec.items()),
+              flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -911,6 +1066,12 @@ def main():
         if log.exists():
             print(f"[build {name}]\n{log.read_text()}", file=sys.stderr)
     print(f"built {sorted(paths)} in {report['build_s']:.1f} s", flush=True)
+    regs = ptxas_report(paths)
+    report["ptxas"] = regs
+    for name in KERNEL_NAMES:
+        if name not in regs:
+            fail(f"no -Xptxas -v report of {name}")
+        print(f"{name}: {regs_summary(regs[name])}", flush=True)
 
     lap("build")
     # ---- kernels against their plain versions ------------------------
@@ -941,9 +1102,38 @@ def main():
          500, 60),
         (Trellis(np.array([10]), np.array([[0o2335, 0o3661]])), "hard", 3,
          2000, 100),
+        # the warp layout at S = 8, 16 and 32 (8, 4 and 2 frames a warp)
+        # and n = 1, 3 and 8, the block layout at S = 128: B no multiple
+        # of the frames a warp, T no multiple of 32
+        (Trellis(np.array([3]), np.array([[0o15, 0o17]])), "soft", 13, 77,
+         20),
+        (Trellis(np.array([4]), np.array([[0o23, 0o35]])), "hard", 7, 90, 20),
+        (Trellis(np.array([5]), np.array([[0o53, 0o75]])), "unquantized", 5,
+         100, 25),
+        (Trellis(np.array([7]), np.array([[0o247, 0o371]])), "soft", 5, 140,
+         35),
+        (Trellis(np.array([4]), np.array([[0o23]])), "hard", 9, 61, 20),
+        (Trellis(np.array([2]), np.array([[5, 7, 7]])), "unquantized", 19,
+         75, 15),
+        (Trellis(np.array([6]), np.array([[0o133, 0o171, 0o165, 0o117, 0o127,
+                                           0o155, 0o163, 0o145]])), "soft", 3,
+         70, 30),
     ]
     for i, (tr, dt, B, L, tb) in enumerate(small):
         compare_case(torch, tallies, tr, dt, B, L, tb, seed=100 + i)
+    # every step a tie (r = 0) and -0.0 received values, on both layouts
+    ties = [(Trellis(np.array([1]), np.array([[3, 1]])), "soft", 7, 50, 5),
+            (Trellis(np.array([2]), np.array([[5, 7]])), "unquantized", 37,
+             211, 15),
+            (k7, "soft", 3, 100, 30), (k7, "hard", 5, 100, 30),
+            (Trellis(np.array([8]), np.array([[0o561, 0o753]])), "soft", 3,
+             150, 40)]
+    for i, (tr, dt, B, L, tb) in enumerate(ties):
+        r = kernel_input(torch, tr, dt, B, L, 200 + i, dev)
+        compare_case(torch, tallies, tr, dt, B, L, tb, 0,
+                     r=torch.zeros_like(r))
+        r.view(-1)[::3] = -0.0
+        compare_case(torch, tallies, tr, dt, B, L, tb, 0, r=r)
     # bench shape: bench.py's input, randn * 3 LLRs
     rng = np.random.RandomState(0)
     bench_llr = torch.as_tensor(
@@ -1260,6 +1450,9 @@ def main():
         timings[shape] = {
             "B": B, "T": T,
             "acs_ms": cuda_ms(torch, lambda: K.acs_forward(r, C7), 10),
+            "acs_device_ms": device_ms(
+                torch, lambda: K.acs_forward(r, C7), 10, "acs_"),
+            "acs_plan": K.acs_plan(64, n, B),
             "acs_plain_ms": cuda_ms(
                 torch, lambda: K.acs_forward_plain(r, C7), 2),
             "tb_ms": cuda_ms(torch, lambda: K.traceback(dec, best, 64, 30),
@@ -1269,6 +1462,12 @@ def main():
             "acs_bound": k1_bound(B, T, n, 64),
             "tb_bound": k2_bound(B, T, 64, 30),
         }
+    for shape, t in timings.items():
+        print(f"K1 {shape} B={t['B']} T={t['T']}: {t['acs_ms']:.4f} ms a "
+              f"call, {t['acs_device_ms']:.4f} ms of device time (plain "
+              f"{t['acs_plain_ms']:.1f} ms), bound "
+              f"{bound_ms(*t['acs_bound'])[0]:.4f} ms; plan {t['acs_plan']}; "
+              f"K2 {t['tb_ms']:.4f} ms", flush=True)
     dec_ms = cuda_ms(torch, lambda: viterbi_decode_device(
         bench_llr, k7, 30, "soft", L=1024), 10)
     decoded_bps = 2048 * 1024 / (dec_ms * 1e-3)
@@ -1331,6 +1530,19 @@ def main():
               f"device time (plain {b['plain_ms']:.1f} ms), "
               f"bound {bound_ms(*b['bound'][:2])[0]:.4f} ms, message store "
               f"{b['bound'][2] / HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
+        if kern is QK.qc_bp_resident:
+            g4 = QK._graph(kw["meta"])
+            b["plan"] = QK.resident_plan(g4["Z"], g4["Nb"], g4["Mb"],
+                                         g4["E"], g4["kmax"],
+                                         kw.get("schedule", "flooding"))
+            # where K4's time goes: a launch that stops after 0, 1 and 2
+            # sweeps, beside the bench's
+            b["sweeps_device_ms"] = {k: device_ms(
+                torch, lambda k=k, kw=kw: kern(x, **dict(kw, n_iters=k)), 5,
+                "qc_bp_resident_kernel") for k in (0, 1, 2)}
+            b["sweeps_device_ms"][kw["n_iters"]] = b["device_ms"]
+            print(f"{key} plan {b['plan']}; device ms by sweeps "
+                  f"{b['sweeps_device_ms']}", flush=True)
     # K5's frames in flight: 1, 2 and 3 frames a SM (where shared memory
     # holds them) beside the plan's, each held to the plan's bits
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1550,6 +1762,11 @@ def main():
             "bench_ms": bn[f"{key}_ms"], "bench_plain_ms":
                 bn[f"{key}_plain_ms"], "bench_bound_ms": bb_ms,
         })
+        if key == "acs":
+            kernels[-1].update({
+                "redesigned": True, "device_ms": m4["acs_device_ms"],
+                "bench_device_ms": bn["acs_device_ms"], "ms_note": MS_NOTE,
+                "plan": m4["acs_plan"]})
     for name, key, replaces, launches, shape in (
             ("qc_bp_resident", "k4_flooding15",
              "commpy_tpu/kernels/qc_bp.py:290", launches_a,
@@ -1586,6 +1803,12 @@ def main():
             "second_shape": "layered-8" if key == "k4_flooding15"
             else "bf16 store",
         })
+        if name == "qc_bp_resident":
+            kernels[-1].update({
+                "redesigned": True, "plan": t["plan"],
+                "sweeps_device_ms": t["sweeps_device_ms"],
+                "second_plan": other["plan"],
+                "second_sweeps_device_ms": other["sweeps_device_ms"]})
         if name == "qc_bp_streamed":
             kernels[-1].update({
                 "redesigned": True,
@@ -1624,6 +1847,40 @@ def main():
                  "F=256, NII (128, 0))"}, **extra))
     report["kernels"] = kernels
     lap("timing")
+    if "--ab" in sys.argv:
+        other_root = sys.argv[sys.argv.index("--ab") + 1]
+        OK, OQ, OM = load_other_port(other_root)
+        meta4 = (p1944["Z"], p1944["Nb"], Q.qc_rows(p1944))
+        ok4 = dict(algorithm="MSA", n_iters=15, meta=meta4)
+        ok4l = dict(algorithm="MSA", n_iters=8, meta=meta4,
+                    schedule="layered")
+        links = {"mcs4": (link, OM.wifi80211_device_link(
+                     4, frame_bits=1200, device="cuda"), 2048, ns),
+                 "path_a": (ldpc_link, OM.wifi80211n_ldpc_link(1944, 16),
+                            512, ns_a)}
+
+        def step(lk, frames, noise):
+            # both trees draw the same bits and noise: equal error counts
+            g = torch.Generator(device=dev)
+            g.manual_seed(21)
+            return (lk.link_step(g, frames, noise),)
+        report["ab"] = {"other": other_root, "card": card, **ab_compare(
+            torch, {
+                "k1_mcs4": ("acs_", lambda: K.acs_forward(r_mcs4, C7),
+                            lambda: OK.acs_forward(r_mcs4, C7)),
+                "k1_bench": ("acs_", lambda: K.acs_forward(r_bench, C7),
+                             lambda: OK.acs_forward(r_bench, C7)),
+                "k4_flooding15": ("qc_bp_resident_kernel",
+                                  lambda: QK.qc_bp_resident(x4, **ok4),
+                                  lambda: OQ.qc_bp_resident(x4, **ok4)),
+                "k4_layered8": ("qc_bp_resident_kernel",
+                                lambda: QK.qc_bp_resident(x4l, **ok4l),
+                                lambda: OQ.qc_bp_resident(x4l, **ok4l)),
+                **{f"{k}_link_step": (None, lambda v=v: step(v[0], *v[2:]),
+                                      lambda v=v: step(v[1], *v[2:]))
+                   for k, v in links.items()},
+            })}
+        lap("ab")
     report["phase_s"] = phase_s
     report["seconds"] = time.perf_counter() - t_start
     print(json.dumps({

@@ -1,7 +1,10 @@
 // Viterbi forward pass (ACS) and sliding-window traceback for Hopper (sm_90a).
 //
-// K1 acs_forward_kernel replaces commpy_tpu/kernels/viterbi_acs.py
-//    acs_forward_pallas (its bodies _acs_kernel / _acs_kernel_fused).
+// K1 replaces commpy_tpu/kernels/viterbi_acs.py acs_forward_pallas (its
+//    bodies _acs_kernel / _acs_kernel_fused) with two layouts, picked by
+//    the launch plan kernels/viterbi_acs.py:acs_plan:
+//      acs_warp_kernel   S <= 64: a warp walks 64/S frames (one at S = 64);
+//      acs_forward_kernel S >= 128: a block of S threads walks one frame.
 // K2 traceback_kernel replaces commpy_tpu/kernels/viterbi_acs.py
 //    traceback_pallas (_traceback_kernel).
 //
@@ -22,16 +25,35 @@
 //
 // What bounds them on an H100: at the 802.11 MCS-4 shape (B=2048, T=1205,
 // S=64, n=2) K1 must move ~49 MB (r in, decisions and best states out) and
-// K2 ~32 MB, i.e. 15 us and 10 us at 3.35 TB/s.  The real limit is the
-// dependency chain: each of K1's T steps needs the previous step's path
-// metrics, so one block walks one frame through all T steps and the card is
-// filled with frames, not with steps.  This first version is written for
-// exactness; the time it takes is recorded in PERF.md.
+// K2 ~32 MB, i.e. 15 us and 10 us at 3.35 TB/s, and K1 does ~5 float
+// operations a state-step, 25 us at the FMA peak's instruction rate.  The
+// real limit is the dependency chain: each of K1's T steps needs the
+// previous step's path metrics, so the card is filled with frames, not
+// with steps, and a step must cost few instructions and no block barrier.
+//
+// acs_warp_kernel: lane l of a frame's S/2 lanes owns butterfly l, which
+// reads predecessors 2l and 2l+1 and writes states l and l + S/2, so a
+// step is two add-compare-selects from the same two old metrics; four
+// shuffles hand the new metrics on.  The step minimum is a redux.sync
+// (or a shuffle tree below 32 lanes) over the order-preserving 32-bit key
+// of the float; no index is formed on the chain: lane 0 puts step t's
+// decision ballots and the ballots of (metric == minimum) in a 32-step
+// ring in shared memory, and at the end of each chunk lane t%32 turns
+// step t's ballots into the
+// packed decision words and the first-index best state (lower states
+// first, as torch.argmin breaks ties), and the warp stores 32 rows at
+// once.  r is staged a chunk ahead with cp.async into warp-private shared
+// memory.  No block barrier: the warps of a block are independent.
 //
 // Numerics: the file is compiled with -fmad=false so every add and multiply
 // rounds on its own, in the same order as the plain version.  Path metrics
 // start at 0 for state 0 and 3.0e37 elsewhere (the XLA core's inf after
-// nan_to_num) and are renormalised by the per-step minimum.
+// nan_to_num) and are renormalised by the per-step minimum: each kernel
+// keeps the UN-renormalised metric v and forms ((v - m) + bm) from the
+// previous step's minimum m, exactly the plain version's
+// ((pm - amin) + bm).  No metric is ever -0.0 (x - x is +0.0, and a sum
+// is -0.0 only when both terms are), so the key's -0.0 < +0.0 order never
+// decides a minimum.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,7 +66,8 @@ constexpr float kUnreached = 3.0e37f;
 constexpr size_t kMaxStagedBytes = 200 * 1024;  // K2 staging limit per frame
 
 // One block walks F = max(1, 32/S) frames through all T steps with one
-// thread per (frame, state).  Path metrics live in shared memory, double
+// thread per (frame, state); the plan's block layout launches it for
+// S >= 128 only (F = 1).  Path metrics live in shared memory, double
 // buffered by step parity.  A thread stores its UN-renormalised metric v
 // and the next step subtracts the step minimum m when it reads it, which
 // gives exactly the plain version's ((v - m) + bm) while needing only one
@@ -168,6 +191,208 @@ acs_forward_kernel(const float* __restrict__ r, const float* __restrict__ C,
   }
 }
 
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarpBlockMax = 128;  // threads of an acs_warp_kernel block
+
+// Order-preserving 32-bit key of a float (unsigned order = float order,
+// -0.0 below +0.0) and its inverse.
+__device__ __forceinline__ unsigned float_key(float x) {
+  const unsigned b = __float_as_uint(x);
+  return b ^ ((unsigned)((int)b >> 31) | 0x80000000u);
+}
+__device__ __forceinline__ float key_float(unsigned k) {
+  return __uint_as_float(k ^ (~(unsigned)((int)k >> 31) | 0x80000000u));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+// Bring the received words of steps t0 .. t0+31 (or to T) of the warp's
+// frames b0 .. b0+F-1 into dst [F][32*N + 1] (padded: the frames' reads
+// of one step fall in different banks), one cp.async group.
+template <int N>
+__device__ __forceinline__ void stage_chunk(float* dst, const float* r,
+                                            int b0, int F, int B, int T,
+                                            int t0, int lane) {
+  const int cnt = min(kChunk, T - t0) * N;
+  for (int f = 0; f < F && b0 + f < B; ++f) {
+    const float* src = r + ((size_t)(b0 + f) * T + t0) * N;
+    for (int e = lane; e < cnt; e += 32) {
+      cp_async4(dst + f * (kChunk * N + 1) + e, src + e);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Floats of one warp's shared memory: the ballot ring [32] of uint4 (a
+// step's decision and equality ballots, lo and hi), then two slots of
+// staged r [2][F][32*n + 1], rounded up to 16 bytes.
+__host__ __device__ constexpr int warp_smem_floats(int S, int n) {
+  return 4 * kChunk + (2 * (64 / S) * (kChunk * n + 1) + 3) / 4 * 4;
+}
+
+// A warp walks F = 64/S frames through all T steps (S <= 64); lane l of
+// frame g (lanes g*W .. g*W+W-1, W = S/2) owns butterfly l: predecessors
+// 2l and 2l+1, new states l ("lo") and l + W ("hi").
+template <int N, bool HARD>
+__global__ void __launch_bounds__(kWarpBlockMax)
+acs_warp_kernel(const float* __restrict__ r, const float* __restrict__ C,
+                const float* __restrict__ hconst, int32_t* __restrict__ dec,
+                int32_t* __restrict__ best, int B, int T, int S) {
+  extern __shared__ float smem[];
+  constexpr int kStride = kChunk * N + 1;
+  const int lane = threadIdx.x & 31;
+  const int W = S >> 1;
+  const int F = 32 / W;
+  const int g = lane / W;
+  const int l = lane & (W - 1);
+  const int b0 = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * F;
+  if (b0 >= B) return;  // the whole warp
+  float* wsm = smem + (threadIdx.x >> 5) * warp_smem_floats(S, N);
+  uint4* ring = reinterpret_cast<uint4*>(wsm);
+  float* rs = wsm + 4 * kChunk;
+
+  float c0l[N], c1l[N], c0h[N], c1h[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    c0l[i] = C[l * N + i];
+    c1l[i] = C[(S + l) * N + i];
+    c0h[i] = C[(W + l) * N + i];
+    c1h[i] = C[(S + W + l) * N + i];
+  }
+  float h0l = 0.f, h1l = 0.f, h0h = 0.f, h1h = 0.f;
+  if (HARD) {
+    h0l = hconst[l];
+    h1l = hconst[S + l];
+    h0h = hconst[W + l];
+    h1h = hconst[S + W + l];
+  }
+  // predecessor 2l is lo of lane 2l (2l < W) or hi of lane 2l - W; 2l+1
+  // likewise (at W = 1 the two differ: lo and hi of the frame's lane)
+  const int src_a = g * W + ((2 * l) & (W - 1));
+  const int src_b = g * W + ((2 * l + 1) & (W - 1));
+  const bool a_hi = 2 * l >= W;
+  const bool b_hi = 2 * l + 1 >= W;
+  const unsigned gmask = W == 32 ? kFull : (1u << W) - 1u;
+
+  float vlo = l == 0 ? 0.f : kUnreached;
+  float vhi = kUnreached;
+  float m = 0.f;  // minimum of the previous step
+
+  stage_chunk<N>(rs, r, b0, F, B, T, 0, lane);
+  for (int t0 = 0; t0 < T; t0 += kChunk) {
+    const int buf = (t0 / kChunk) & 1;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncwarp();  // the chunk landed, and every read of the other slot ended
+    if (t0 + kChunk < T) {
+      stage_chunk<N>(rs + (buf ^ 1) * F * kStride, r, b0, F, B, T,
+                     t0 + kChunk, lane);
+    }
+    const float* rf = rs + buf * F * kStride + g * kStride;
+    const int steps = min(kChunk, T - t0);
+    for (int tc = 0; tc < steps; ++tc) {
+      float rr[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) rr[i] = rf[tc * N + i];
+      const float alo = __shfl_sync(kFull, vlo, src_a);
+      const float ahi = __shfl_sync(kFull, vhi, src_a);
+      const float blo = __shfl_sync(kFull, vlo, src_b);
+      const float bhi = __shfl_sync(kFull, vhi, src_b);
+      const float x0 = (a_hi ? ahi : alo) - m;
+      const float x1 = (b_hi ? bhi : blo) - m;
+      float m0l = rr[0] * c0l[0], m1l = rr[0] * c1l[0];
+      float m0h = rr[0] * c0h[0], m1h = rr[0] * c1h[0];
+#pragma unroll
+      for (int i = 1; i < N; ++i) {
+        m0l = m0l + rr[i] * c0l[i];
+        m1l = m1l + rr[i] * c1l[i];
+        m0h = m0h + rr[i] * c0h[i];
+        m1h = m1h + rr[i] * c1h[i];
+      }
+      if (HARD) {
+        m0l = m0l + h0l;
+        m1l = m1l + h1l;
+        m0h = m0h + h0h;
+        m1h = m1h + h1h;
+      }
+      const float k0l = x0 + m0l, k1l = x1 + m1l;
+      const float k0h = x0 + m0h, k1h = x1 + m1h;
+      const bool tl = k1l < k0l;  // ties keep branch 0
+      const bool th = k1h < k0h;
+      vlo = tl ? k1l : k0l;
+      vhi = th ? k1h : k0h;
+      const unsigned bl = __ballot_sync(kFull, tl);
+      const unsigned bh = __ballot_sync(kFull, th);
+      unsigned key = min(float_key(vlo), float_key(vhi));
+      if (W == 32) {
+        key = __reduce_min_sync(kFull, key);
+      } else {
+        for (int off = W >> 1; off > 0; off >>= 1) {
+          key = min(key, __shfl_xor_sync(kFull, key, off));
+        }
+      }
+      m = key_float(key);
+      // float equality: a -0.0/+0.0 tie is the tie torch.argmin sees
+      const unsigned el = __ballot_sync(kFull, vlo == m);
+      const unsigned eh = __ballot_sync(kFull, vhi == m);
+      if (lane == 0) ring[tc] = make_uint4(bl, bh, el, eh);
+    }
+    __syncwarp();
+    if (lane < steps) {  // lane writes step t0 + lane of every frame
+      const uint4 q = ring[lane];
+      const unsigned d_lo = q.x, d_hi = q.y, e_lo = q.z, e_hi = q.w;
+      const int t = t0 + lane;
+      for (int f = 0; f < F && b0 + f < B; ++f) {
+        const int sh = f * W;
+        const unsigned lo = (d_lo >> sh) & gmask;
+        const unsigned hi = (d_hi >> sh) & gmask;
+        const unsigned qlo = (e_lo >> sh) & gmask;
+        const unsigned qhi = (e_hi >> sh) & gmask;
+        const size_t row = (size_t)(b0 + f) * T + t;
+        if (W == 32) {
+          reinterpret_cast<int2*>(dec)[row] = make_int2((int)lo, (int)hi);
+        } else {
+          dec[row] = (int32_t)(lo | hi << W);
+        }
+        best[row] = qlo ? __ffs(qlo) - 1 : W + __ffs(qhi) - 1;
+      }
+    }
+  }
+}
+
+size_t warp_smem_bytes(int S, int n) {
+  return sizeof(float) * warp_smem_floats(S, n);
+}
+
+template <int N, bool HARD>
+int launch_warp(const float* r, const float* C, const float* hconst,
+                int32_t* dec, int32_t* best, int B, int T, int S, int grid,
+                int threads, size_t smem, cudaStream_t stream) {
+  auto* kernel = acs_warp_kernel<N, HARD>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<grid, threads, smem, stream>>>(r, C, hconst, dec, best, B, T, S);
+  return (int)cudaGetLastError();
+}
+
+template <int N>
+int launch_warp_hard(const float* r, const float* C, const float* hconst,
+                     int32_t* dec, int32_t* best, int B, int T, int S,
+                     int grid, int threads, size_t smem,
+                     cudaStream_t stream) {
+  return hconst != nullptr
+             ? launch_warp<N, true>(r, C, hconst, dec, best, B, T, S, grid,
+                                    threads, smem, stream)
+             : launch_warp<N, false>(r, C, hconst, dec, best, B, T, S, grid,
+                                     threads, smem, stream);
+}
+
 // One block per frame; the frame's packed decisions are staged in shared
 // memory (T*G*4 bytes: 9.6 KB at T=1205, S=64) when they fit.  Thread p
 // decodes position p: the window that finalises it ends at
@@ -201,19 +426,48 @@ __global__ void traceback_kernel(const int32_t* __restrict__ dec,
 
 }  // namespace
 
+// The launch plan (kernels/viterbi_acs.py:acs_plan) gives the layout
+// (0: acs_warp_kernel, 1: acs_forward_kernel), threads, grid and shared
+// memory bytes; a plan that does not fit the layout is refused.
 extern "C" int acs_forward_launch(const float* r, const float* C,
                                   const float* hconst, int32_t* dec,
                                   int32_t* best, int B, int T, int n, int S,
-                                  int G, void* stream) {
+                                  int G, int layout, int threads, int grid,
+                                  int smem_bytes, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = (size_t)smem_bytes;
+  if (n < 1 || n > kMaxN || S < 2 || (S & (S - 1)) || grid < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (layout == 0) {
+    const int wpb = threads / 32;
+    if (S > 64 || threads % 32 || threads > kWarpBlockMax || wpb < 1 ||
+        smem != wpb * warp_smem_bytes(S, n) ||
+        (size_t)grid * wpb * (64 / S) < (size_t)B) {
+      return (int)cudaErrorInvalidValue;
+    }
+    using Launch = int (*)(const float*, const float*, const float*,
+                           int32_t*, int32_t*, int, int, int, int, int,
+                           size_t, cudaStream_t);
+    static const Launch by_n[kMaxN] = {
+        launch_warp_hard<1>, launch_warp_hard<2>, launch_warp_hard<3>,
+        launch_warp_hard<4>, launch_warp_hard<5>, launch_warp_hard<6>,
+        launch_warp_hard<7>, launch_warp_hard<8>};
+    return by_n[n - 1](r, C, hconst, dec, best, B, T, S, grid, threads, smem,
+                       st);
+  }
   const int nth = S < 32 ? 32 : S;
   const int F = nth / S;
   const int nwarps = nth / 32;
-  const size_t smem = sizeof(float) * (2 * nth + 2 * nwarps) +
+  const size_t need = sizeof(float) * (2 * nth + 2 * nwarps) +
                       sizeof(int) * 2 * nwarps +
                       sizeof(float) * F * kChunk * n;
-  const int grid = (B + F - 1) / F;
-  acs_forward_kernel<<<grid, nth, smem, (cudaStream_t)stream>>>(
-      r, C, hconst, dec, best, B, T, n, S, G);
+  if (layout != 1 || threads != nth || smem != need ||
+      (size_t)grid * F < (size_t)B) {
+    return (int)cudaErrorInvalidValue;
+  }
+  acs_forward_kernel<<<grid, nth, smem, st>>>(r, C, hconst, dec, best, B, T,
+                                              n, S, G);
   return (int)cudaGetLastError();
 }
 

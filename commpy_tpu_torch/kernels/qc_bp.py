@@ -9,12 +9,16 @@ the same inputs, outputs and order of float operations and is what the
 kernel is held against on the card.
 
 The TPU kernels kept a 128-frame lane chunk in VMEM and rolled [Z, 128]
-tiles along sublanes.  Here a CUDA block decodes a frame at a time:
+tiles along sublanes.  Here CUDA blocks decode frames:
 
-* K4 keeps the frame's channel LLRs, totals and every check-to-variable
-  message (``nnz * Z`` float32) in dynamic shared memory, which holds
-  every 802.11n code and WiMAX 1440 (at most ~44 KB a frame), one block
-  per frame;
+* K4 keeps a frame's totals and every check-to-variable message
+  (``nnz * Z`` float32) in dynamic shared memory, which holds every
+  802.11n code and WiMAX 1440 (at most ~44 KB a frame), with the graph's
+  packed tables beside them, one frame a block.  Its launch plan
+  (:func:`resident_plan`, a pure function of the code's sizes and the
+  schedule) gives a thread per check (flooding) or per circulant
+  position (layered), looping past the block's threads; the flooding
+  syndrome is folded into the next sweep's check phase;
 * K5, for the DVB-S2 and NR class codes, keeps the totals there (64.8 KB
   at n = 16200) and the messages in a store in device memory (float32 or
   bfloat16).  Its launch plan (:func:`streamed_plan`, a pure function of
@@ -69,7 +73,7 @@ from . import (H100_SMS, SM_SMEM, SMEM_LIMIT, SMEM_PER_BLOCK, _build,
                sm_count)
 
 __all__ = ["qc_bp_resident", "qc_bp_resident_plain", "qc_bp_streamed",
-           "qc_bp_streamed_plain", "resident_smem_bytes",
+           "qc_bp_streamed_plain", "resident_smem_bytes", "resident_plan",
            "streamed_smem_bytes", "streamed_plan", "sign_keep_zero",
            "SMEM_LIMIT", "MAX_ROW_BLOCKS", "LLR_MAX"]
 
@@ -80,6 +84,7 @@ STREAMED_KMAX = (8, 16, 32)  # K5's compile-time row bounds
 # registers a thread of K5 takes at each row bound (the most of its f32
 # and bf16 instantiations in the -Xptxas -v report for sm_90a)
 STREAMED_REGS = {8: 72, 16: 128, 32: 128}
+RESIDENT_KMAX = (8, 16, 32)  # K4's compile-time row bounds
 SM_REGS = 65_536  # registers of one H100 SM
 SM_BLOCKS = 32  # resident blocks one H100 SM holds at most
 LLR_MAX = 500.0  # reference ldpc.py:11 clipping
@@ -91,6 +96,59 @@ def resident_smem_bytes(n: int, Z: int, nnz: int) -> int:
     """Shared memory of one K4 block: the frame's messages (``nnz * Z``
     float32), channel LLRs and totals (n float32 each)."""
     return 4 * nnz * Z + 8 * n
+
+
+def resident_max_threads(kmax_t: int, schedule: str) -> int:
+    """Threads a K4 block may have (its ``__launch_bounds__``): 1024 for
+    flooding at the row bounds 8 and 16 (64 registers a thread), else 512
+    (128 registers: rows of up to 32 blocks, and the layered row's held
+    values)."""
+    return 512 if schedule == "layered" or kmax_t > 16 else 1024
+
+
+def resident_plan(Z: int, Nb: int, Mb: int, E: int, kmax: int,
+                  schedule: str, repeat: bool = False) -> dict:
+    """K4's launch plan, a pure function of the code's sizes and the
+    schedule (``repeat``: some check block row holds a column twice).
+
+    A block decodes one frame (several frames a block measured slower,
+    PERF.md).  Its threads (whole warps):
+    one per check, Mb*Z, for flooding and one per circulant position, Z,
+    for layered, at most the block's bound (:func:`resident_max_threads`);
+    past it each thread loops (``loop``).  Shared memory: the frame's
+    totals and messages, ``4 * (n + E*Z)`` bytes (the LLRs are read from
+    device memory), and the packed tables.
+
+    Returns kmax_t, threads, loop, frame_bytes, table_bytes and
+    smem_bytes.  Raises ValueError where the frame and the tables exceed
+    :data:`SMEM_LIMIT` or a row exceeds 32 blocks, and NotImplementedError
+    for a layered code with a repeated column whose Z exceeds the block's
+    threads.
+    """
+    if schedule not in ("flooding", "layered"):
+        raise ValueError('schedule must be "flooding" or "layered"')
+    kmax_t = next((k for k in RESIDENT_KMAX if kmax <= k), None)
+    if kmax_t is None:
+        raise ValueError(f"check block rows of {kmax} blocks exceed "
+                         f"{RESIDENT_KMAX[-1]}")
+    work = Mb * Z if schedule == "flooding" else Z
+    threads = min(-(-work // 32) * 32, resident_max_threads(kmax_t,
+                                                            schedule))
+    if schedule == "layered" and repeat and Z > threads:
+        raise NotImplementedError(
+            f"K4's layered sweep gives a row with a repeated column a thread "
+            f"per position: Z={Z} exceeds its {threads} threads")
+    frame = 4 * (Nb * Z + E * Z)
+    tables = 4 * (2 * E + Mb + Nb)
+    if frame + tables > SMEM_LIMIT:
+        raise ValueError(
+            f"QC code too large for the resident kernel ({frame + tables} "
+            f"bytes of shared memory for one frame and the graph tables, "
+            f"{SMEM_LIMIT} available); use backend='streamed' (layered) or "
+            f"'torch'")
+    return {"kmax_t": kmax_t, "threads": threads, "loop": work > threads,
+            "frame_bytes": frame, "table_bytes": tables,
+            "smem_bytes": frame + tables}
 
 
 def _streamed_sizes(Z: int, msg_io: str):
@@ -164,7 +222,12 @@ def _graph(meta, pos_masks=()):
     the flat message index that the d-th block of each column adds to
     variable position z, ``row_edges [Mb, Kmax]`` (E pads), ``slot [E]``
     each edge's place in that padded layout, and ``keep [E, Z]`` (or
-    None) 0 where ``pos_masks`` removes an edge position.
+    None) 0 where ``pos_masks`` removes an edge position.  The kernels'
+    packed int32 tables: ``edge5 [E]`` ``(ej*Z) << 11 | repeated << 10 |
+    es`` and ``row5 [Mb]`` ``e0 | K << 16 | has_repeat << 31`` (K4, K5),
+    ``keep5 [Mb, Z]`` each check's keep bits (K5), ``col5 [Nb]`` ``q0 | D
+    << 16`` and ``cedge5 [E]`` ``(e*Z) << 11 | es`` of each column's D
+    edges in row-major order from q0 (K4).
     """
     Z, Nb, rows = meta
     Mb = len(rows)
@@ -217,11 +280,14 @@ def _graph(meta, pos_masks=()):
                 keep5[i] |= keep[e].astype(np.uint32) << np.uint32(e - e0)
         row5[i] = e0 | (e1 - e0) << 16 | int(rep[e0:e1].any()) << 31
     edge5 = (ej * Z) << 11 | rep << 10 | es
+    col5 = col_start[:-1] | np.diff(col_start) << 16
+    cedge5 = (col_edges * Z) << 11 | es[col_edges]
     return {"Z": Z, "Nb": Nb, "Mb": Mb, "E": E, "kmax": kmax, "ej": ej,
             "es": es, "row_start": row_start, "col_start": col_start,
             "col_edges": col_edges, "vidx": vidx, "inv": inv,
             "inv_ok": inv_ok, "row_edges": row_edges, "slot": slot,
             "keep": keep, "edge5": edge5.astype(np.int32),
+            "col5": col5.astype(np.int32), "cedge5": cedge5.astype(np.int32),
             "row5": row5.astype(np.uint32).view(np.int32),
             "keep5": None if keep5 is None else keep5.view(np.int32)}
 
@@ -426,23 +492,13 @@ def qc_bp_streamed_plain(llr: torch.Tensor, algorithm: str, n_iters: int,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("qc_bp")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    graph = [p, p, p, p, p, p, i, i, i, i]
-    lib.qc_bp_resident_launch.argtypes = [p, p, p, *graph, i, i, i, i, f, f,
-                                          p]
+    lib.qc_bp_resident_launch.argtypes = [p, p, p, p, p, p, p, *[i] * 12,
+                                          f, f, p]
     lib.qc_bp_resident_launch.restype = i
     lib.qc_bp_streamed_launch.argtypes = [p, p, p, p, p, p, p, *[i] * 14,
                                           f, f, p]
     lib.qc_bp_streamed_launch.restype = i
     return lib
-
-
-def _graph_args(g, dev):
-    """Pointers and sizes of K4's graph tables on ``dev`` (int32; no keep
-    table: K4 takes no position masks)."""
-    tabs = [_on(g, name, dev, np.int32)
-            for name in ("ej", "es", "row_start", "col_start", "col_edges")]
-    return [t.data_ptr() for t in tabs] + [None, g["Z"], g["Nb"], g["Mb"],
-                                           g["E"]]
 
 
 def _check_cuda(llr, g, name, max_z=MAX_Z):
@@ -478,17 +534,23 @@ def qc_bp_resident(llr: torch.Tensor, algorithm: str, n_iters: int, meta,
         return qc_bp_resident_plain(llr, algorithm, n_iters, meta, schedule,
                                     msa_scale, msa_offset)
     _check_cuda(llr, g, "qc_bp_resident")
+    plan = resident_plan(g["Z"], g["Nb"], g["Mb"], g["E"], g["kmax"],
+                         schedule, bool((g["row5"] < 0).any()))
     B, n = llr.shape
-    dec = torch.empty((B, n), dtype=torch.int8, device=llr.device)
-    out = torch.empty((B, n), dtype=torch.float32, device=llr.device)
+    dev = llr.device
+    dec = torch.empty((B, n), dtype=torch.int8, device=dev)
+    out = torch.empty((B, n), dtype=torch.float32, device=dev)
     if B:
-        with torch.cuda.device(llr.device):
+        with torch.cuda.device(dev):
             rc = _lib().qc_bp_resident_launch(
                 llr.data_ptr(), dec.data_ptr(), out.data_ptr(),
-                *_graph_args(g, llr.device), B, int(n_iters),
+                *[_on(g, name, dev).data_ptr()
+                  for name in ("edge5", "row5", "col5", "cedge5")],
+                g["Z"], g["Nb"], g["Mb"], g["E"], g["kmax"], plan["kmax_t"],
+                B, plan["threads"], plan["smem_bytes"], int(n_iters),
                 int(algorithm == "SPA"), int(schedule == "layered"),
                 float(msa_scale), float(msa_offset),
-                torch.cuda.current_stream(llr.device).cuda_stream)
+                torch.cuda.current_stream(dev).cuda_stream)
         if rc:
             raise RuntimeError(f"qc_bp_resident kernel launch failed: CUDA "
                                f"error {rc}")

@@ -10,12 +10,16 @@ held against on the card.
 
 The TPU kernels expressed the predecessor gather as a one-hot
 permutation matmul and packed decisions with a powers-of-two matmul,
-because gathers are slow on the TPU.  Here each CUDA thread owns one
-state, reads its two predecessors by index and packs decisions with a
-warp ballot; one block walks a frame through all T steps (the TPU's
-sequential time-chunk grid and its persistent path-metric scratch become
-that loop).  Both kernels take binary-input, shift-structured trellises
-only; ``ops/viterbi.py`` routes every other trellis to its general path.
+because gathers are slow on the TPU.  Here the predecessors are read by
+index and decisions packed with warp ballots, and a loop over all T
+steps takes the place of the TPU's sequential time-chunk grid and its
+persistent path-metric scratch.  The ACS launch plan (:func:`acs_plan`, a
+pure function of S, n and B) picks one of two layouts: for S <= 64 a
+warp walks 64/S frames, a lane owning a butterfly (two states), with no
+block barrier in the step loop; for S >= 128 a block of S threads walks
+one frame, a thread a state.  Both kernels take binary-input,
+shift-structured trellises only; ``ops/viterbi.py`` routes every other
+trellis to its general path.
 
 Layouts: r ``[B, T, n]`` f32; C ``[2, S, n]`` f32 with ``bm(j, s) =
 r_t . C[j, s]``; hconst ``[2, S]`` f32 or None (the hard metric's
@@ -33,18 +37,22 @@ import torch
 from . import _build
 
 __all__ = ["acs_forward", "traceback", "acs_forward_plain",
-           "traceback_plain", "MAX_STATES", "MAX_N"]
+           "traceback_plain", "acs_plan", "MAX_STATES", "MAX_N"]
 
-MAX_STATES = 1024  # one thread per state, one block per frame
+MAX_STATES = 1024  # the block layout: one thread per state
 MAX_N = 8  # widest codeword the ACS kernel holds in registers
+WARP_MAX_STATES = 64  # the warp layout: S/2 lanes a frame
 UNREACHED = 3.0e37  # initial metric of every state but 0
+_CHUNK = 32  # received steps staged in shared memory at a time
+_WARPS_A_BLOCK = 4  # warps of a warp-layout block, shared memory allowing
+_SMEM_DEFAULT = 48 * 1024  # shared memory a block gets without opting in
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("viterbi_acs")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.acs_forward_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.acs_forward_launch.argtypes = [p, p, p, p, p, *[i] * 9, p]
     lib.acs_forward_launch.restype = i
     lib.traceback_launch.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.traceback_launch.restype = i
@@ -53,6 +61,45 @@ def _lib() -> ctypes.CDLL:
 
 def _words(S: int) -> int:
     return -(-S // 32)
+
+
+def acs_plan(S: int, n: int, B: int) -> dict:
+    """K1's launch plan, a pure function of the states, the codeword width
+    and the batch.
+
+    ``layout='warp'`` for S <= 64: a warp walks ``frames_per_warp`` =
+    64/S frames, ``lanes_per_frame`` = S/2 lanes each (a lane owns a
+    butterfly: states s and s + S/2), with a 32-step ring of its ballots
+    (512 bytes) and its received words staged 32 steps at a time in two
+    slots of ``[frames][32 n + 1]`` floats (rounded up to 16 bytes); up
+    to four warps a block while that stays within the default 48 KB, else
+    one.  ``layout='block'`` for S >= 128: one frame a block of S threads
+    (``warps_per_frame`` = S/32), a thread a state.
+
+    Returns layout, frames_per_warp, warps_per_frame, lanes_per_frame,
+    states_per_lane, threads, warps_per_block, smem_bytes and grid.
+    """
+    if S < 2 or S & (S - 1) or S > MAX_STATES:
+        raise ValueError(f"S must be a power of 2 in [2, {MAX_STATES}], "
+                         f"got {S}")
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"n must be in [1, {MAX_N}], got {n}")
+    if S <= WARP_MAX_STATES:
+        F = WARP_MAX_STATES // S
+        # a 32-step ring of four ballot words, then two slots of staged r
+        per_warp = 16 * _CHUNK + 16 * -(-2 * F * (_CHUNK * n + 1) // 4)
+        wpb = max(1, min(_WARPS_A_BLOCK, _SMEM_DEFAULT // per_warp))
+        warps = -(-B // F)
+        return {"layout": "warp", "frames_per_warp": F,
+                "warps_per_frame": 1, "lanes_per_frame": S // 2,
+                "states_per_lane": 2, "threads": 32 * wpb,
+                "warps_per_block": wpb, "smem_bytes": wpb * per_warp,
+                "grid": max(1, -(-warps // wpb))}
+    nw = S // 32
+    smem = 4 * (2 * S + 2 * nw) + 4 * 2 * nw + 4 * _CHUNK * n
+    return {"layout": "block", "frames_per_warp": 1, "warps_per_frame": nw,
+            "lanes_per_frame": S, "states_per_lane": 1, "threads": S,
+            "warps_per_block": nw, "smem_bytes": smem, "grid": max(1, B)}
 
 
 def _check_acs(r, C, hconst):
@@ -142,11 +189,14 @@ def acs_forward(r: torch.Tensor, C: torch.Tensor,
     dec = torch.empty((B, T, G), dtype=torch.int32, device=r.device)
     best = torch.empty((B, T), dtype=torch.int32, device=r.device)
     if B and T:
+        plan = acs_plan(S, n, B)
         with torch.cuda.device(r.device):
             rc = _lib().acs_forward_launch(
                 r.data_ptr(), C.data_ptr(),
                 None if hconst is None else hconst.data_ptr(),
                 dec.data_ptr(), best.data_ptr(), B, T, n, S, G,
+                int(plan["layout"] == "block"), plan["threads"],
+                plan["grid"], plan["smem_bytes"],
                 torch.cuda.current_stream(r.device).cuda_stream)
         if rc:
             raise RuntimeError(f"acs_forward kernel launch failed: CUDA "

@@ -175,3 +175,160 @@ def test_bcjr_plan_sends_s16_at_t320_to_device_memory():
     # short frames of every state count fit
     for S in (2, 4, 8, 16):
         assert BK.bcjr_plan(33, S, 130)["hist"] == "shared"
+
+
+# --------------------------------------------------------------------------
+# K1: the ACS launch plan (kernels/viterbi_acs.py:acs_plan)
+# --------------------------------------------------------------------------
+
+from commpy_tpu_torch.kernels import viterbi_acs as VK  # noqa: E402
+
+STATES = [2 ** k for k in range(1, 11)]
+
+
+def _warp_lanes(S):
+    """The warp kernel's index arithmetic (csrc/viterbi_acs.cu:
+    acs_warp_kernel), lane by lane: (frame, low state, high state, lane of
+    predecessor 2l, its half, lane of predecessor 2l+1, its half)."""
+    W = S // 2
+    rows = []
+    for lane in range(32):
+        g, l = lane // W, lane & (W - 1)
+        rows.append((g, l, l + W, g * W + ((2 * l) & (W - 1)), 2 * l >= W,
+                     g * W + ((2 * l + 1) & (W - 1)), 2 * l + 1 >= W))
+    return rows
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+@pytest.mark.parametrize("S", STATES)
+def test_acs_plan_covers_every_state_once(S, n):
+    for B in (1, 7, 2047):
+        plan = VK.acs_plan(S, n, B)
+        assert plan["lanes_per_frame"] * plan["states_per_lane"] == S
+        if S <= 64:
+            assert plan["layout"] == "warp"
+            F = plan["frames_per_warp"]
+            assert F * plan["lanes_per_frame"] == 32 and F * S == 64
+            assert plan["warps_per_frame"] == 1
+            assert plan["threads"] == 32 * plan["warps_per_block"] <= 128
+            per_warp = plan["smem_bytes"] // plan["warps_per_block"]
+            assert per_warp == 512 + 16 * -(-2 * F * (32 * n + 1) // 4)
+            assert plan["smem_bytes"] <= (48 * 1024 if plan[
+                "warps_per_block"] > 1 else K.SMEM_LIMIT)
+            frames = plan["grid"] * plan["warps_per_block"] * F
+            assert frames >= B > frames - plan["warps_per_block"] * F
+            # each frame's lanes own every state once, and read their
+            # predecessors 2l and 2l+1 from the lane and half that hold them
+            lanes = _warp_lanes(S)
+            for g in range(F):
+                own = sorted(s for row in lanes if row[0] == g
+                             for s in row[1:3])
+                assert own == list(range(S))
+            where = {(row[0], s): (lane, s == row[2])
+                     for lane, row in enumerate(lanes) for s in row[1:3]}
+            for g, l, _, la, ha, lb, hb in lanes:
+                assert where[(g, 2 * l)] == (la, ha)
+                assert where[(g, 2 * l + 1)] == (lb, hb)
+        else:
+            assert plan["layout"] == "block"
+            assert plan["frames_per_warp"] == 1
+            assert plan["warps_per_frame"] * 32 == S == plan["threads"]
+            assert plan["grid"] == B
+            assert plan["smem_bytes"] <= 48 * 1024
+
+
+def test_acs_plan_at_the_mcs4_shape_and_its_limits():
+    plan = VK.acs_plan(64, 2, 2048)
+    # a warp a frame, four warps a block: 512 blocks of 128 threads
+    assert (plan["layout"], plan["grid"], plan["threads"]) == ("warp", 512,
+                                                              128)
+    assert plan["smem_bytes"] == 4 * (512 + 16 * 33)
+    # S = 2 at n = 8: one warp of 32 frames, its 66 KB opting in past 48 KB
+    small = VK.acs_plan(2, 8, 33)
+    assert (small["warps_per_block"], small["grid"]) == (1, 2)
+    assert 48 * 1024 < small["smem_bytes"] <= K.SMEM_LIMIT
+    for bad in ((3, 2), (2048, 2), (64, 9), (64, 0)):
+        with pytest.raises(ValueError):
+            VK.acs_plan(*bad, 8)
+
+
+# --------------------------------------------------------------------------
+# K4: the resident launch plan (kernels/qc_bp.py:resident_plan)
+# --------------------------------------------------------------------------
+
+RESIDENT = sorted(n for n, r in ROUTES.items() if r[0] == "resident")
+
+
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+@pytest.mark.parametrize("name", RESIDENT)
+def test_resident_plan_fits_a_block_and_an_sm(name, schedule):
+    p = _code(name)
+    g = _graph(p)
+    n = g["Nb"] * g["Z"]
+    plan = K.resident_plan(g["Z"], g["Nb"], g["Mb"], g["E"], g["kmax"],
+                           schedule)
+    assert plan["kmax_t"] in K.RESIDENT_KMAX and g["kmax"] <= plan["kmax_t"]
+    assert plan["threads"] % 32 == 0
+    assert plan["threads"] <= K.resident_max_threads(plan["kmax_t"],
+                                                     schedule) <= 1024
+    # a thread per check (flooding) or per circulant position (layered)
+    work = g["Mb"] * g["Z"] if schedule == "flooding" else g["Z"]
+    assert not plan["loop"] and work <= plan["threads"] < work + 32
+    # shared memory: the frame's totals and messages, then the tables,
+    # within a block's 227 KB and, with the block's 1 KB, an SM's
+    assert plan["frame_bytes"] == 4 * (n + g["E"] * g["Z"])
+    assert plan["table_bytes"] == 4 * (2 * g["E"] + g["Mb"] + g["Nb"])
+    assert plan["smem_bytes"] == plan["frame_bytes"] + plan["table_bytes"]
+    assert plan["smem_bytes"] <= K.SMEM_LIMIT == 232_448
+    assert plan["smem_bytes"] + K.SMEM_PER_BLOCK <= K.SM_SMEM
+    # the per-frame budget select_backend routes by holds the frame
+    assert plan["frame_bytes"] <= K.resident_smem_bytes(n, g["Z"], g["E"])
+
+
+def test_resident_plan_at_the_bench_code_and_past_a_block():
+    g = _graph(_code("80211n-1944-1/2"))
+    args = (g["Z"], g["Nb"], g["Mb"], g["E"], g["kmax"])
+    # 972 checks: a block of 992 threads; 81 positions: 96
+    assert K.resident_plan(*args, "flooding")["threads"] == 992
+    assert K.resident_plan(*args, "layered")["threads"] == 96
+    # rows of up to 32 blocks, and the layered rows, take 512-thread blocks
+    g = _graph(_code("80211n-648-5/6"))
+    assert K.resident_plan(g["Z"], g["Nb"], g["Mb"], g["E"], g["kmax"],
+                           "flooding")["kmax_t"] == 32
+    assert K.resident_max_threads(32, "flooding") == 512
+    assert K.resident_max_threads(16, "flooding") == 1024
+    assert K.resident_max_threads(8, "layered") == 512
+    # past a block's threads each thread loops
+    wide = K.resident_plan(640, 18, 2, 34, 17, "flooding")
+    assert (wide["kmax_t"], wide["threads"], wide["loop"]) == (32, 512, True)
+    assert K.resident_plan(640, 18, 2, 34, 17, "layered")["loop"]
+    assert K.resident_plan(256, 12, 6, 24, 4, "flooding")["loop"]
+    with pytest.raises(NotImplementedError, match="repeated column"):
+        K.resident_plan(640, 18, 2, 34, 17, "layered", repeat=True)
+    with pytest.raises(ValueError, match="too large for the resident"):
+        g = _graph(_code("dvbs2-16200"))
+        K.resident_plan(g["Z"], g["Nb"], g["Mb"], g["E"], g["kmax"],
+                        "layered")
+    with pytest.raises(ValueError, match="exceed"):
+        K.resident_plan(8, 40, 1, 33, 33, "flooding")
+    with pytest.raises(ValueError, match="schedule"):
+        K.resident_plan(*args, "zigzag")
+
+
+@pytest.mark.parametrize("name", ["80211n-1944-1/2", "80211n-648-5/6",
+                                  "wimax-1440"])
+def test_resident_column_tables_say_what_the_graph_says(name):
+    g = _graph(_code(name))
+    Z = g["Z"]
+    col = g["col5"].astype(np.int64)
+    cedge = g["cedge5"].astype(np.int64)
+    assert np.array_equal(col & 0xFFFF, g["col_start"][:-1])
+    assert np.array_equal(col >> 16, np.diff(g["col_start"]))
+    assert np.array_equal(cedge >> 11, g["col_edges"] * Z)
+    assert np.array_equal(cedge & 1023, g["es"][g["col_edges"]])
+    # every edge once, each column's in row-major order
+    assert sorted(g["col_edges"]) == list(range(g["E"]))
+    for j in range(g["Nb"]):
+        q0, D = col[j] & 0xFFFF, col[j] >> 16
+        es = g["col_edges"][q0:q0 + D]
+        assert list(es) == sorted(es) and all(g["ej"][es] == j)

@@ -197,3 +197,82 @@ def test_argument_errors():
         K.traceback(torch.zeros(2, 20, 1), torch.zeros(2, 20,
                                                        dtype=torch.int32),
                     4, 5)
+
+
+@pytest.mark.parametrize("kind", ["zero", "negzero"])
+@pytest.mark.parametrize("decoding_type", ["soft", "hard", "unquantized"])
+def test_ties_and_signed_zeros_match_jax(decoding_type, kind):
+    # r = 0 makes every step a tie between the two branches of every state
+    # and between states; -0.0 received values must not tip any of them
+    jt, pt = JTrellis(*CODES["S64"]), Trellis(*CODES["S64"])
+    B, L = 3, 70
+    if kind == "zero":
+        x = np.zeros((B, 2 * L), np.float32)
+    else:
+        x = (np.random.RandomState(4).randn(B, 2 * L) * 2).astype(np.float32)
+        x[:, ::3] = -0.0
+        x[1] = -0.0
+    r = V.received_words(torch.as_tensor(x), pt, decoding_type, L)
+    C, hc = V._kernel_tables(V._branch_vectors(pt, decoding_type), pt,
+                             decoding_type, torch.device("cpu"))
+    dec, best = K.acs_forward_plain(r, C, hc)
+    jdec, jbest = JK.acs_forward_pallas(r.numpy(), jt, decoding_type,
+                                        layout="btg")
+    np.testing.assert_array_equal(dec.numpy(), np.asarray(jdec))
+    np.testing.assert_array_equal(best.numpy(), np.asarray(jbest))
+    bits = K.traceback_plain(dec, best, 64, 20)[:, :L].numpy()
+    np.testing.assert_array_equal(
+        bits, np.asarray(jdecode_device(x, jt, 20, decoding_type)))
+    np.testing.assert_array_equal(
+        bits, np.asarray(JK.traceback_pallas(jdec, jbest, 64, 20))[:, :L])
+    if kind == "zero":
+        # all-tie: the first state wins every step, so every bit is 0
+        assert not bits.any() and not best.numpy().any()
+
+
+def _key(x):
+    """The ACS kernel's order-preserving 32-bit key of float32 ``x``."""
+    b = x.view(np.uint32)
+    return np.where(b >> 31, ~b, b | np.uint32(0x80000000)).astype(np.uint32)
+
+
+def _unkey(k):
+    return np.where(k >> 31, k & np.uint32(0x7FFFFFFF),
+                    ~k).astype(np.uint32).view(np.float32)
+
+
+def _kernel_argmin(v):
+    """The ACS kernel's minimum rule on one step's metrics ``v`` [S]: the
+    least key over the states, back to a float, then the first state whose
+    metric equals it as a float (``csrc/viterbi_acs.cu``)."""
+    m = _unkey(np.array([_key(v).min()], np.uint32))[0]
+    return int(np.flatnonzero(v == m)[0]), m
+
+
+@pytest.mark.parametrize("values", [
+    [3.0, 1.0, 1.0, 2.0],            # a tie: the first wins
+    [0.0, -0.0, 5.0, 1.0],           # +0.0 before -0.0
+    [-0.0, 0.0, 5.0],                # -0.0 before +0.0
+    [2.0, 0.0, -0.0, 0.0, 7.0],
+    [-1.5, 3.0e37, -1.5, -2.5e-38],  # negatives, denormal-sized, unreached
+    [3.0e37] * 6,
+])
+def test_kernel_minimum_rule_matches_torch_argmin(values):
+    v = np.array(values, np.float32)
+    idx, m = _kernel_argmin(v)
+    assert idx == int(torch.argmin(torch.as_tensor(v)))
+    assert m == float(torch.amin(torch.as_tensor(v)))
+
+
+def test_kernel_minimum_rule_on_random_ties():
+    rng = np.random.RandomState(7)
+    for _ in range(300):
+        v = rng.choice(np.array([-2.0, -0.0, 0.0, 1.0, 4.0], np.float32),
+                       size=rng.randint(2, 65))
+        assert _kernel_argmin(v)[0] == int(torch.argmin(torch.as_tensor(v)))
+        # the key order is the float order, -0.0 below +0.0
+        k = _key(v)
+        for a, b in zip(k[:-1], k[1:]):
+            x, y = _unkey(np.array([a]))[0], _unkey(np.array([b]))[0]
+            assert (a < b) == (x < y or (x == y == 0 and np.signbit(x)
+                                         and not np.signbit(y)))
