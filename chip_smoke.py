@@ -12,8 +12,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    block layout; n = 1, 2, 3 and 8; hard, soft and unquantized; B not a
    multiple of the frames a warp, T not a multiple of 32), received words
    all zero (every step a tie) and with -0.0 entries, where the plain
-   versions also run on the host CPU; prints the registers, stack and
-   spills of every kernel from ``-Xptxas -v``;
+   versions also run on the host CPU; the traceback K2 also with
+   tb_depth past T, 3 and below 32, and on decisions of random words and
+   all ties at S = 2 to 1024, staged in shared memory and read from
+   device memory; prints the registers, stack and spills of every kernel
+   from ``-Xptxas -v``;
 4. runs the main path: the 802.11 MCS-4 link (16-QAM, rate 3/4,
    frame_bits=1200) at F=2048 frames per step at 12 dB through
    ``montecarlo_ber``, plus the physics checks (uncoded QPSK BER against
@@ -64,7 +67,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``ext_scale=0.7`` beating 1.0 at 0 dB);
 10. times each kernel and its plain version with CUDA events (the Viterbi
    decoder at the bench configuration and the MCS-4 link step; K1 and K2
-   at the MCS-4 and bench shapes, K1 also by device time; K4 at B=512
+   at the MCS-4 and bench shapes, also by device time, with K2's launch
+   plan and back-steps a frame beside those of full walks and of a
+   merge-aware walk (``traceback_merge_plain``); K4 at B=512
    MSA-15 flooding and layered-8, also after 0, 1 and 2 sweeps; K5 at
    B=512 layered-8, float32 and bfloat16; K3 at its three bench shapes),
    K4's, K5's and K3's device time with torch.profiler beside it (K5 at
@@ -78,8 +83,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 With ``--ab DIR`` (a checkout of another commit, e.g. the parent unpacked
 with ``git archive``), it also loads that checkout's ``commpy_tpu_torch``
-under another name, builds its kernels there, and times its K1 and K4,
-and the MCS-4 and Path A link steps, beside this tree's on the same
+under another name, builds its kernels there, and times its K1, K2 and
+K4, and the MCS-4 and Path A link steps, beside this tree's on the same
 inputs in turns (other, this, this, other), holding the two trees'
 outputs equal.
 
@@ -120,7 +125,8 @@ SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # (linear)
 LSE2_FLOPS = {"exact": 3, "maxlog": 1, "linear": 5}
 MS_NOTE = ("ms: CUDA events around back-to-back wrapper calls, as for every "
-           "kernel; device_ms: the kernel's own device time (torch.profiler)")
+           "kernel; device_ms: the kernel's own device time (torch.profiler), "
+           "null where five profiles held no record of the kernel")
 
 
 def fail(msg):
@@ -148,15 +154,17 @@ def device_ms(torch, fn, reps, kernel):
     """Mean device time in ms of one launch of the kernels whose name holds
     ``kernel``, over ``reps`` calls of ``fn`` after one warm-up call
     (torch.profiler): the kernel alone, without the host's time between
-    launches that CUDA events around back-to-back calls also count."""
+    launches that CUDA events around back-to-back calls also count.  None,
+    with a line that says so, when five profiles hold no record of the
+    kernel: its time is then only the CUDA events' (:func:`cuda_ms`)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     # a profile now and then comes back without the kernels' records (the
-    # launches ran: their outputs are held elsewhere); three profiles
-    # without them fail the run
-    for _ in range(3):
+    # launches ran: their outputs are held elsewhere); after five such
+    # profiles the device time is not measured, and said so
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -168,7 +176,14 @@ def device_ms(torch, fn, reps, kernel):
                 n += e.count
         if n and us:
             return us / n / 1e3
-    fail(f"the profiler saw no device time of {kernel}")
+    print(f"chip_smoke: the profiler saw no device time of {kernel} in five "
+          "profiles; its device_ms is null", flush=True)
+    return None
+
+
+def ms_str(ms, digits=4):
+    """A time in ms for a line of output; "not measured" for None."""
+    return "not measured" if ms is None else f"{ms:.{digits}f}"
 
 
 KERNEL_NAMES = ("acs_warp_kernel", "acs_forward_kernel", "traceback_kernel",
@@ -232,14 +247,21 @@ def k1_bound(B, T, n, S):
     return nbytes, ops
 
 
-def k2_bound(B, T, S, tb_depth):
+def k2_steps(T, S, tb_depth, skip=False):
+    """Back-steps of a frame's full walks: each window's walk from its end
+    to its position, or, with ``skip``, to log2(S) - 1 steps above it,
+    where K2 stops (the MSB it emits is a bit of the state there)."""
+    walk = np.minimum(min(tb_depth, T + 1) - 2, T - 1 - np.arange(T))
+    msb = max(S.bit_length() - 2, 0) if skip else 0
+    return int((walk - msb).clip(min=0).sum())
+
+
+def k2_bound(B, T, S, steps):
     """Least time of the traceback: decisions and best states read once,
-    bits written once; four integer operations per back-step."""
+    bits written once; four integer operations per back-step, ``steps``
+    back-steps in all."""
     G = -(-S // 32)
-    nbytes = B * T * (4 * G + 4 + 1)
-    steps = np.minimum(tb_depth - 2, T - 1 - np.arange(T)).clip(min=0)
-    ops = 4 * B * int(steps.sum())
-    return nbytes, ops
+    return B * T * (4 * G + 4 + 1), 4 * steps
 
 
 def bound_ms(nbytes, ops, ops_per_s=F32_INSTR_PER_S):
@@ -316,6 +338,57 @@ def compare_case(torch, tallies, trellis, decoding_type, B, L, tb_depth,
         tallies["traceback"].add(
             bits.cpu(), K.traceback_plain(dec_c, best_c, S, tb_depth))
     return r, C, hc
+
+
+def k2_cases():
+    """(S, B, T, tb_depth, kind, staged) of the traceback cases on
+    decisions of random words or all ties: every S with its decisions
+    staged in shared memory and read from device memory, tb_depth past T,
+    2 and 3.  ``staged`` is what the launch plan must choose."""
+    cases = []
+    for S in (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024):
+        G = -(-S // 32)
+        row = 1 if G == 1 else G + 1
+        T_dev = 232_448 // (4 * row) + 37  # past a block's shared memory
+        cases += [(S, 5, 77, 30, "random", True),
+                  (S, 2, T_dev, 30, "random", False)]
+    cases += [
+        (64, 3, 1205, 30, "tie", True),
+        (2, 3, 77, 2, "tie", True),
+        (64, 3, 300, 301, "random", True),
+        (64, 3, 300, 2000, "random", True),
+        (1024, 2, 40, 3, "random", True),
+        (64, 2, 5000, 6000, "random", True),
+        (1024, 2, 3000, 3001, "random", False),
+        (1024, 2, 3000, 3001, "tie", False),
+    ]
+    return cases
+
+
+def k2_parity(torch, tally):
+    """Hold K2 to traceback_plain on the cases of :func:`k2_cases`."""
+    from commpy_tpu_torch.kernels import viterbi_acs as K
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(31)
+    for S, B, T, tb, kind, staged in k2_cases():
+        if K.traceback_plan(S, T, tb, B)["staged"] != staged:
+            fail(f"K2 case S={S} T={T} tb={tb}: the plan does not stage "
+                 f"as the case is for (staged={staged})")
+        G = -(-S // 32)
+        if kind == "tie":
+            dec = torch.zeros((B, T, G), dtype=torch.int32, device=dev)
+            best = torch.zeros((B, T), dtype=torch.int32, device=dev)
+        else:
+            dec = torch.randint(-2 ** 31, 2 ** 31, (B, T, G), generator=g,
+                                device=dev, dtype=torch.int64).to(
+                                    torch.int32)
+            best = torch.randint(0, S, (B, T), generator=g, device=dev,
+                                 dtype=torch.int32)
+        bits = K.traceback(dec, best, S, tb)
+        torch.cuda.synchronize()
+        tally.add(bits, K.traceback_plain(dec, best, S, tb))
 
 
 def link_words(torch, link, B, snr_db, seed):
@@ -1097,11 +1170,16 @@ def main():
         (Trellis(np.array([10]), np.array([[0o2335, 0o3661]])), "soft", 5,
          120, 50),
         # the traceback's decisions past 48 KB of shared memory (the
-        # opt-in) and past its 200 KB staging limit (read from global)
+        # opt-in) and past what shared memory holds (read from global)
         (Trellis(np.array([10]), np.array([[0o2335, 0o3661]])), "soft", 3,
          500, 60),
         (Trellis(np.array([10]), np.array([[0o2335, 0o3661]])), "hard", 3,
          2000, 100),
+        # the traceback: tb_depth past T (every window ends at T - 1; a
+        # lane's first walk spans the frame), tb_depth 3, T < 32
+        (k7, "soft", 4, 1200, 1300),
+        (k7, "soft", 3, 100, 3),
+        (k7, "soft", 5, 20, 30),
         # the warp layout at S = 8, 16 and 32 (8, 4 and 2 frames a warp)
         # and n = 1, 3 and 8, the block layout at S = 128: B no multiple
         # of the frames a warp, T no multiple of 32
@@ -1146,6 +1224,7 @@ def main():
     r_mcs4 = link_words(torch, link, 2048, 12.0, 7)
     compare_case(torch, tallies, k7, "soft", 2048, 1200, 30, 0, r=r_mcs4)
     # the whole decoder: kernels against the plain path
+    k2_parity(torch, tallies["traceback"])
     full_auto = viterbi_decode_device(bench_llr, k7, 30, "soft", L=1024)
     full_plain = viterbi_decode_device(bench_llr, k7, 30, "soft", L=1024,
                                        backend="torch")
@@ -1443,10 +1522,16 @@ def main():
     lap("path_c_and_physics")
     # ---- timing -------------------------------------------------------
     timings = {}
+    tb_inputs = {}
     for shape, r in (("mcs4", r_mcs4), ("bench", r_bench)):
         B, T, n = r.shape
         dec, best = K.acs_forward(r, C7)
-        torch.cuda.synchronize()
+        tb_inputs[shape] = (dec, best)
+        # the back-steps a merge-aware walk takes on these decisions, and
+        # its bits once more
+        bits_m, steps_m = K.traceback_merge_plain(dec, best, 64, 30)
+        if not torch.equal(bits_m, K.traceback(dec, best, 64, 30)):
+            fail(f"K2 {shape}: the kernel differs from traceback_merge_plain")
         timings[shape] = {
             "B": B, "T": T,
             "acs_ms": cuda_ms(torch, lambda: K.acs_forward(r, C7), 10),
@@ -1457,17 +1542,45 @@ def main():
                 torch, lambda: K.acs_forward_plain(r, C7), 2),
             "tb_ms": cuda_ms(torch, lambda: K.traceback(dec, best, 64, 30),
                              20),
+            "tb_device_ms": device_ms(
+                torch, lambda: K.traceback(dec, best, 64, 30), 20,
+                "traceback"),
             "tb_plain_ms": cuda_ms(
                 torch, lambda: K.traceback_plain(dec, best, 64, 30), 3),
+            "tb_plan": K.traceback_plan(64, T, 30, B),
+            "tb_steps_per_frame": k2_steps(T, 64, 30, skip=True),
+            "tb_full_steps_per_frame": k2_steps(T, 64, 30),
+            "tb_merge_steps_per_frame": int(steps_m.sum()) / B,
+            "tb_merge_lane_steps_max": int(steps_m.max()),
             "acs_bound": k1_bound(B, T, n, 64),
-            "tb_bound": k2_bound(B, T, 64, 30),
+            # the function's least work on these decisions: a merge-aware
+            # walk's back-steps; beside it K2's own and every window's full
+            # walk
+            "tb_bound": k2_bound(B, T, 64, int(steps_m.sum())),
+            "tb_own_bound": k2_bound(B, T, 64,
+                                     B * k2_steps(T, 64, 30, skip=True)),
+            "tb_full_bound": k2_bound(B, T, 64, B * k2_steps(T, 64, 30)),
         }
     for shape, t in timings.items():
         print(f"K1 {shape} B={t['B']} T={t['T']}: {t['acs_ms']:.4f} ms a "
-              f"call, {t['acs_device_ms']:.4f} ms of device time (plain "
+              f"call, {ms_str(t['acs_device_ms'])} ms of device time (plain "
               f"{t['acs_plain_ms']:.1f} ms), bound "
-              f"{bound_ms(*t['acs_bound'])[0]:.4f} ms; plan {t['acs_plan']}; "
-              f"K2 {t['tb_ms']:.4f} ms", flush=True)
+              f"{bound_ms(*t['acs_bound'])[0]:.4f} ms; plan {t['acs_plan']}",
+              flush=True)
+        print(f"K2 {shape} B={t['B']} T={t['T']}: {t['tb_ms']:.4f} ms a call, "
+              f"{ms_str(t['tb_device_ms'])} ms of device time (plain "
+              f"{t['tb_plain_ms']:.2f} ms); back-steps a frame: K2 "
+              f"{t['tb_steps_per_frame']}, full walks "
+              f"{t['tb_full_steps_per_frame']}, merge-aware "
+              f"{t['tb_merge_steps_per_frame']:.1f} (a lane at most "
+              f"{t['tb_merge_lane_steps_max']}); bound "
+              f"{bound_ms(*t['tb_bound'], INT32_OPS_PER_S)[0]:.4f} ms by "
+              f"{bound_ms(*t['tb_bound'], INT32_OPS_PER_S)[1]} (merge-aware; "
+              f"K2's own back-steps "
+              f"{bound_ms(*t['tb_own_bound'], INT32_OPS_PER_S)[0]:.4f}, "
+              f"full walks "
+              f"{bound_ms(*t['tb_full_bound'], INT32_OPS_PER_S)[0]:.4f}); "
+              f"plan {t['tb_plan']}", flush=True)
     dec_ms = cuda_ms(torch, lambda: viterbi_decode_device(
         bench_llr, k7, 30, "soft", L=1024), 10)
     decoded_bps = 2048 * 1024 / (dec_ms * 1e-3)
@@ -1526,7 +1639,7 @@ def main():
                               msg_bytes if kern is QK.qc_bp_streamed else 0),
         }
         b = timings[key]
-        print(f"{key}: {b['ms']:.3f} ms a call, {b['device_ms']:.3f} ms of "
+        print(f"{key}: {b['ms']:.3f} ms a call, {ms_str(b['device_ms'], 3)} ms of "
               f"device time (plain {b['plain_ms']:.1f} ms), "
               f"bound {bound_ms(*b['bound'][:2])[0]:.4f} ms, message store "
               f"{b['bound'][2] / HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
@@ -1570,7 +1683,7 @@ def main():
         timings[key]["sweeps_device_ms"][8] = timings[key]["device_ms"]
         print(f"{key} device ms by sweeps: "
               f"{timings[key]['sweeps_device_ms']}; frames per SM: "
-              + ", ".join(f"{k} {v['device_ms']:.3f} ms (store "
+              + ", ".join(f"{k} {ms_str(v['device_ms'], 3)} ms (store "
                           f"{v['store_mb']:.1f} MB)" if isinstance(v, dict)
                           else f"{k} {v}" for k, v in trade.items()),
               flush=True)
@@ -1598,9 +1711,9 @@ def main():
             "in_40mb_of_l2": k5_at_grid(torch, x384, m384, (), io,
                                         min(plan["grid"], in_l2))}
         print(f"K5 NR BG1 Z=384 B=512 {io} layered-8: {nr384[io]['ms']:.3f} "
-              f"ms a call; device time {nr384[io]['plan']['device_ms']:.3f} "
+              f"ms a call; device time {ms_str(nr384[io]['plan']['device_ms'], 3)} "
               f"ms at the plan's {plan['grid']} blocks, "
-              f"{nr384[io]['in_40mb_of_l2']['device_ms']:.3f} ms at "
+              f"{ms_str(nr384[io]['in_40mb_of_l2']['device_ms'], 3)} ms at "
               f"{nr384[io]['in_40mb_of_l2']['grid']}", flush=True)
     timings["k5_nr_bg1_z384"] = nr384
     # Path B end to end: the noisy decodes of the Path B phase, timed with
@@ -1643,7 +1756,7 @@ def main():
             t = path_b_t[f"{name}_{io}"]
             print(f"Path B {name} {io} B=512 layered-8 at Eb/N0 2 dB: decode "
                   f"{ms:.3f} ms, {t['info_bits_per_s']:.4g} info bits/s; K5 "
-                  f"{kern_ms:.3f} ms over {t['sweeps_total']} sweeps (mean "
+                  f"{ms_str(kern_ms, 3)} ms over {t['sweeps_total']} sweeps (mean "
                   f"{t['sweeps_mean']:.2f}), bound {t['k5_bound_ms']:.4f} ms",
                   flush=True)
     report["path_b_timing"] = path_b_t
@@ -1691,7 +1804,7 @@ def main():
                 torch, syn, pan, li, trt, hist, **kw), 5, "bcjr_kernel")
         b_ms, b_by = k3_bound_ms(*t["bound"][:3])
         print(f"k3_{key} T={T} R={R}: {t['ms']:.4f} ms a call, "
-              f"{t['device_ms']:.4f} ms of device time (plain "
+              f"{ms_str(t['device_ms'])} ms of device time (plain "
               f"{t['plain_ms']:.1f} ms; history in {t['plan_hist']} memory; "
               f"device time with it shared {t['shared_device_ms']}, global "
               f"{t['global_device_ms']}), bound "
@@ -1747,6 +1860,10 @@ def main():
             ("traceback", "tb", "commpy_tpu/kernels/viterbi_acs.py:505")):
         m4, bn = timings["mcs4"], timings["bench"]
         rate = INT32_OPS_PER_S if key == "tb" else F32_INSTR_PER_S
+        # K2's bound is the function's least work on this run's decisions:
+        # the bytes, or a merge-aware walk's back-steps; own_steps_bound_ms
+        # counts K2's own back-steps (the full walks less the log2(S) - 1
+        # it skips), full_walk_bound_ms every window's whole walk
         b_ms, b_by = bound_ms(*m4[f"{key}_bound"], rate)
         bb_ms, _ = bound_ms(*bn[f"{key}_bound"], rate)
         kernels.append({
@@ -1762,11 +1879,26 @@ def main():
             "bench_ms": bn[f"{key}_ms"], "bench_plain_ms":
                 bn[f"{key}_plain_ms"], "bench_bound_ms": bb_ms,
         })
-        if key == "acs":
+        kernels[-1].update({
+            "redesigned": True, "device_ms": m4[f"{key}_device_ms"],
+            "bench_device_ms": bn[f"{key}_device_ms"], "ms_note": MS_NOTE,
+            "plan": m4[f"{key}_plan"]})
+        if key == "tb":
             kernels[-1].update({
-                "redesigned": True, "device_ms": m4["acs_device_ms"],
-                "bench_device_ms": bn["acs_device_ms"], "ms_note": MS_NOTE,
-                "plan": m4["acs_plan"]})
+                "full_walk_bound_ms": bound_ms(*m4["tb_full_bound"],
+                                               rate)[0],
+                "bench_full_walk_bound_ms": bound_ms(*bn["tb_full_bound"],
+                                                     rate)[0],
+                "own_steps_bound_ms": bound_ms(*m4["tb_own_bound"],
+                                               rate)[0],
+                "bench_own_steps_bound_ms": bound_ms(*bn["tb_own_bound"],
+                                                     rate)[0],
+                "steps_per_frame": m4["tb_steps_per_frame"],
+                "bench_steps_per_frame": bn["tb_steps_per_frame"],
+                "full_steps_per_frame": m4["tb_full_steps_per_frame"],
+                "merge_steps_per_frame": m4["tb_merge_steps_per_frame"],
+                "bench_merge_steps_per_frame":
+                    bn["tb_merge_steps_per_frame"]})
     for name, key, replaces, launches, shape in (
             ("qc_bp_resident", "k4_flooding15",
              "commpy_tpu/kernels/qc_bp.py:290", launches_a,
@@ -1870,6 +2002,10 @@ def main():
                             lambda: OK.acs_forward(r_mcs4, C7)),
                 "k1_bench": ("acs_", lambda: K.acs_forward(r_bench, C7),
                              lambda: OK.acs_forward(r_bench, C7)),
+                **{f"k2_{k}": ("traceback",
+                               lambda v=v: (K.traceback(*v, 64, 30),),
+                               lambda v=v: (OK.traceback(*v, 64, 30),))
+                   for k, v in tb_inputs.items()},
                 "k4_flooding15": ("qc_bp_resident_kernel",
                                   lambda: QK.qc_bp_resident(x4, **ok4),
                                   lambda: OQ.qc_bp_resident(x4, **ok4)),

@@ -5,6 +5,8 @@ import functools
 SMEM_LIMIT = 232_448  # dynamic shared memory one H100 block may opt into
 SM_SMEM = 233_472  # shared memory of one H100 SM (228 KB), of which ...
 SMEM_PER_BLOCK = 1024  # ... each resident block reserves 1 KB
+SM_BLOCKS = 32  # resident blocks one H100 SM holds at most
+SM_WARPS = 64  # resident warps one H100 SM holds at most
 H100_SMS = 132
 
 

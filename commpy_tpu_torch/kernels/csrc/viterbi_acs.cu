@@ -6,7 +6,9 @@
 //      acs_warp_kernel   S <= 64: a warp walks 64/S frames (one at S = 64);
 //      acs_forward_kernel S >= 128: a block of S threads walks one frame.
 // K2 traceback_kernel replaces commpy_tpu/kernels/viterbi_acs.py
-//    traceback_pallas (_traceback_kernel).
+//    traceback_pallas (_traceback_kernel): a warp a frame, a lane four
+//    positions side by side, a back-step one 4-byte read issued five steps
+//    ahead and three integer instructions.
 //
 // Both take binary-input, shift-structured trellises only: the j-th
 // predecessor of state s is ((s & (S/2-1)) << 1) | j and the input bit that
@@ -63,7 +65,6 @@ namespace {
 constexpr int kMaxN = 8;         // widest codeword K1 takes
 constexpr int kChunk = 32;       // received steps staged in shared memory
 constexpr float kUnreached = 3.0e37f;
-constexpr size_t kMaxStagedBytes = 200 * 1024;  // K2 staging limit per frame
 
 // One block walks F = max(1, 32/S) frames through all T steps with one
 // thread per (frame, state); the plan's block layout launches it for
@@ -393,35 +394,228 @@ int launch_warp_hard(const float* r, const float* C, const float* hconst,
                                      threads, smem, stream);
 }
 
-// One block per frame; the frame's packed decisions are staged in shared
-// memory (T*G*4 bytes: 9.6 KB at T=1205, S=64) when they fit.  Thread p
-// decodes position p: the window that finalises it ends at
-// w = min(p + tb_depth - 2, T - 1) (the reference schedule,
-// ops/viterbi.py:29-38 of the JAX package), walks w - p steps back from
-// best[w] and emits the MSB of the state it reaches.
-__global__ void traceback_kernel(const int32_t* __restrict__ dec,
-                                 const int32_t* __restrict__ best,
-                                 int8_t* __restrict__ out, int T, int G, int S,
-                                 int msb, int tb_depth, int staged) {
-  extern __shared__ int32_t sdec[];
-  const int b = blockIdx.x;
-  const int32_t* d = dec + (size_t)b * T * G;
-  if (staged) {
-    for (int i = threadIdx.x; i < T * G; i += blockDim.x) sdec[i] = d[i];
-    __syncthreads();
-    d = sdec;
+// K2, the sliding-window traceback.  Lane l of a warp decodes positions
+// p0 + l, p0 + 32 + l, p0 + 64 + l and p0 + 96 + l of its frame side by
+// side, 128 at a time: the window that finalises p ends at
+// w = min(p + D - 2, T - 1) (the reference schedule, ops/viterbi.py:29-38
+// of the JAX package) and the bit is the MSB of the state the walk back
+// from best[w] reaches at p.
+//
+// What bounds it: the full walks are 33.3 k back-steps a frame at the
+// MCS-4 shape, each a shared-memory read and a few integer instructions
+// on the SM's 64 int32 lanes; the bytes (decisions and best states in,
+// bits out) take 9.6 us at 3.35 TB/s.  So a back-step is made one 4-byte
+// read and three integer instructions, and a lane keeps four independent
+// walks in flight:
+//   * the state is kept as an unmasked shift register r (its low log2(S)
+//     bits are the state; unsigned, as a walk shifts it past 32 bits):
+//     r' = (r << 1) | bit, the shift on the FMA pipe, and the wrapped
+//     32-bit shift reads bit r & 31 of the word;
+//   * the word of a row that holds the state's bit is picked by the
+//     state's bits 5 and up, which are r's bits 0 and up five steps
+//     earlier: each read is issued five steps ahead of its use, off the
+//     dependency chain;
+//   * rows are staged G + 1 words apart (odd), so the 32 lanes' reads of
+//     32 consecutive rows fall in distinct banks;
+//   * the walk stops log2(S) - 1 steps early: the MSB of the state at p
+//     is bit log2(S) - 1 - e of the state e steps above it, exactly.
+// Walking only until a new window's path meets the previous window's
+// (exact too, and ~1/13 of the back-steps at MCS-4) was built and measured
+// slower: a warp steps as long as its slowest lane, and the test and store
+// of the merge cost more than the steps it saved (PERF.md).
+//
+// Each warp stages its frame's decisions in shared memory in kTbChunks
+// cp.async groups, issued three ahead of the rows its positions need, so
+// the walks start while the rest of the frame arrives; best states are
+// read from device memory two groups of positions ahead.  Frames past
+// shared memory read their decisions from device memory.
+constexpr int kTbLanes = 32;
+constexpr int kTbMaxFrames = 8;  // frames (warps) of a block
+constexpr int kTbChunks = 8;     // cp.async groups of a frame's decisions
+constexpr int kTbAhead = 5;      // back-steps a read is issued ahead
+constexpr int kTbIlp = 4;        // positions a lane walks side by side
+
+__device__ __forceinline__ void tb_wait_chunks(int pending) {
+  switch (pending < 7 ? pending : 7) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
   }
-  const int half = S / 2 - 1;
-  for (int p = threadIdx.x; p < T; p += blockDim.x) {
-    const int w = min(p + tb_depth - 2, T - 1);
-    int cur = best[(size_t)b * T + w];
-    for (int t = w; t > p; --t) {
-      const unsigned word = (unsigned)d[t * G + (cur >> 5)];
-      const int j = (int)((word >> (cur & 31)) & 1u);
-      cur = ((cur & half) << 1) | j;
+}
+
+// Rows [k*chunk, (k+1)*chunk) of the frame's decisions into shared memory
+// (row stride rowp), one cp.async group.
+__device__ __forceinline__ void tb_stage_chunk(int32_t* sd, const int32_t* dg,
+                                               int k, int chunk, int T,
+                                               int G, int lg, int rowp,
+                                               int lane) {
+  const int e0 = min(k * chunk, T) * G;
+  const int e1 = min((k + 1) * chunk, T) * G;
+  for (int e = e0 + lane; e < e1; e += 32) {
+    cp_async4(reinterpret_cast<float*>(sd + (e >> lg) * rowp + (e & (G - 1))),
+              reinterpret_cast<const float*>(dg + e));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Walk K chains n back-steps each, chain k from time t[k] and the shift
+// register r[k] of its state there, side by side; leaves in r[k] the
+// register of the state at t[k] - n.  The word for a step at time u is
+// d[u * row + (state >> 5)], read kTbAhead steps early.  CLAMP: the reads
+// ahead may fall below row 0 (only in a frame's first kTbAhead positions)
+// and read row 0 instead, a word never used.  MASK (S < 32): the bit's
+// index is r & smask.  ROW: the row stride when it is known at compile
+// time (1 or 3), else 0 and `row_`.
+template <int K, bool CLAMP, bool MASK, int ROW>
+__device__ __forceinline__ void tb_walk(const int32_t* __restrict__ d,
+                                        int row_, int gmask, int smask,
+                                        int (&t)[K], int n,
+                                        unsigned (&r)[K]) {
+  const int row = ROW ? ROW : row_;
+  auto read = [&](int u, int idx) {
+    return (unsigned)d[(CLAMP ? max(u, 0) : u) * row + idx];
+  };
+  unsigned q[K][kTbAhead];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int a = 0; a < kTbAhead; ++a) {
+      q[k][a] = read(t[k] - a, (r[k] >> (5 - a)) & gmask);
     }
-    out[(size_t)b * T + p] = (int8_t)(cur >> msb);
   }
+  auto step = [&](int k, int a) {
+    const int idx = (int)(r[k] & gmask);
+    const int sh = (int)(MASK ? (r[k] & smask) : (r[k] & 31u));
+    r[k] = (r[k] << 1) | ((q[k][a] >> sh) & 1u);
+    q[k][a] = read(t[k] - kTbAhead, idx);
+    --t[k];
+  };
+  for (; n >= kTbAhead; n -= kTbAhead) {
+#pragma unroll
+    for (int a = 0; a < kTbAhead; ++a) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) step(k, a);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < kTbAhead - 1; ++a) {
+    if (n > a) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) step(k, a);
+    }
+  }
+}
+
+template <bool STAGED, bool MASK, int ROW>
+__global__ void __launch_bounds__(kTbLanes * kTbMaxFrames)
+traceback_kernel(const int32_t* __restrict__ dec,
+                 const int32_t* __restrict__ best, int8_t* __restrict__ out,
+                 int B, int T, int G, int S, int msb, int D, int rowp,
+                 int frame_bytes) {
+  extern __shared__ __align__(16) unsigned char tb_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= B) return;  // the whole warp
+  const int32_t* dg = dec + (size_t)b * T * G;
+  const int32_t* bg = best + (size_t)b * T;
+  int32_t* sd =
+      reinterpret_cast<int32_t*>(tb_smem + (size_t)warp * frame_bytes);
+  const int chunk = (T + kTbChunks - 1) / kTbChunks;
+  int lg = 0;
+  while ((1 << lg) < G) ++lg;
+  int issued = 0;
+  if (STAGED) {
+    for (; issued < 3; ++issued) {
+      tb_stage_chunk(sd, dg, issued, chunk, T, G, lg, rowp, lane);
+    }
+  }
+  const int32_t* d = STAGED ? sd : dg;
+  const int row = STAGED ? rowp : G;
+  const int gmask = G - 1;
+  const int smask = S - 1;
+  int8_t* o = out + (size_t)b * T;
+  // best states of the next two groups of positions: their loads from
+  // device memory are two groups' walks ahead of their use
+  constexpr int kGroup = kTbLanes * kTbIlp;
+  unsigned nb[kTbIlp], nb2[kTbIlp];
+#pragma unroll
+  for (int i = 0; i < kTbIlp; ++i) {
+    nb[i] = (unsigned)__ldg(bg + min(lane + kTbLanes * i + D - 2, T - 1));
+    nb2[i] = (unsigned)__ldg(
+        bg + min(lane + kTbLanes * i + kGroup + D - 2, T - 1));
+  }
+  for (int p0 = 0; p0 < T; p0 += kGroup) {
+    if (STAGED) {
+      const int need = min(p0 + kGroup - 1 + D - 2, T - 1) / chunk;
+      for (; issued < min(need + 3, kTbChunks); ++issued) {
+        tb_stage_chunk(sd, dg, issued, chunk, T, G, lg, rowp, lane);
+      }
+      tb_wait_chunks(issued - 1 - need);
+      __syncwarp();
+    }
+    int p[kTbIlp], t[kTbIlp], e[kTbIlp], n[kTbIlp];
+    unsigned r[kTbIlp];
+#pragma unroll
+    for (int i = 0; i < kTbIlp; ++i) {
+      p[i] = p0 + kTbLanes * i + lane;
+      t[i] = min(p[i] + D - 2, T - 1);
+      e[i] = min(t[i] - p[i], msb);  // steps left unwalked at the bottom
+      n[i] = max(t[i] - p[i] - e[i], 0);
+      r[i] = nb[i];
+      nb[i] = nb2[i];
+      nb2[i] = (unsigned)__ldg(bg + min(p[i] + 2 * kGroup + D - 2, T - 1));
+    }
+    // the positions' walks side by side, where they are equally long (all
+    // but the last windows of a frame), else one by one
+    bool same = true;
+#pragma unroll
+    for (int i = 1; i < kTbIlp; ++i) same = same && n[i] == n[0];
+    if (same) {
+      if (p0) {
+        tb_walk<kTbIlp, false, MASK, ROW>(d, row, gmask, smask, t, n[0], r);
+      } else {
+        tb_walk<kTbIlp, true, MASK, ROW>(d, row, gmask, smask, t, n[0], r);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kTbIlp; ++i) {
+        int ti[1] = {t[i]};
+        unsigned ri[1] = {r[i]};
+        tb_walk<1, true, MASK, ROW>(d, row, gmask, smask, ti, n[i], ri);
+        r[i] = ri[0];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kTbIlp; ++i) {
+      if (p[i] < T) o[p[i]] = (int8_t)((r[i] >> (msb - e[i])) & 1u);
+    }
+  }
+}
+
+template <bool STAGED, bool MASK, int ROW>
+int launch_traceback(const int32_t* dec, const int32_t* best, int8_t* out,
+                     int B, int T, int G, int S, int msb, int D, int rowp,
+                     int frame_bytes, int threads, int grid, size_t smem,
+                     cudaStream_t stream) {
+  auto* kernel = traceback_kernel<STAGED, MASK, ROW>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+    }
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<grid, threads, smem, stream>>>(dec, best, out, B, T, G, S, msb, D,
+                                          rowp, frame_bytes);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -471,20 +665,40 @@ extern "C" int acs_forward_launch(const float* r, const float* C,
   return (int)cudaGetLastError();
 }
 
+// The launch plan (kernels/viterbi_acs.py:traceback_plan) gives the depth
+// D = min(tb_depth, T + 1), the row of staged decisions, whether they are
+// staged, threads, grid and shared memory bytes; a plan that does not fit
+// the kernel is refused.
 extern "C" int traceback_launch(const int32_t* dec, const int32_t* best,
                                 int8_t* out, int B, int T, int G, int S,
-                                int tb_depth, void* stream) {
+                                int D, int rowp, int staged, int threads,
+                                int grid, int smem_bytes, void* stream) {
   int msb = 0;  // log2(S) - 1
   while ((2 << msb) < S) ++msb;
-  const size_t bytes = (size_t)T * G * sizeof(int32_t);
-  const int staged = bytes <= kMaxStagedBytes;
-  if (staged && bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        traceback_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (e != cudaSuccess) return (int)e;
+  const int F = threads / kTbLanes;
+  if (S < 2 || (S & (S - 1)) || S > 1024 || G != (S + 31) / 32 || T < 1 ||
+      D < 2 || D > T + 1 || rowp != (G == 1 ? 1 : G + 1) ||
+      threads % kTbLanes || F < 1 || F > kTbMaxFrames ||
+      (size_t)grid * F < (size_t)B) {
+    return (int)cudaErrorInvalidValue;
   }
-  traceback_kernel<<<B, 256, staged ? bytes : 0, (cudaStream_t)stream>>>(
-      dec, best, out, T, G, S, msb, tb_depth, staged);
-  return (int)cudaGetLastError();
+  const size_t frame =
+      staged ? (((size_t)4 * T * rowp + 15) & ~(size_t)15) : 0;
+  if ((size_t)smem_bytes != F * frame) return (int)cudaErrorInvalidValue;
+  using Launch = int (*)(const int32_t*, const int32_t*, int8_t*, int, int,
+                         int, int, int, int, int, int, int, int, size_t,
+                         cudaStream_t);
+  // the row strides of S <= 32 (1, either placement) and of S = 64 staged
+  // (3) are compile-time constants; the others are not
+  const Launch launch =
+      G == 1 ? (S < 32 ? (staged ? launch_traceback<true, true, 1>
+                                 : launch_traceback<false, true, 1>)
+                       : (staged ? launch_traceback<true, false, 1>
+                                 : launch_traceback<false, false, 1>))
+      : staged ? (G == 2 ? launch_traceback<true, false, 3>
+                         : launch_traceback<true, false, 0>)
+               : launch_traceback<false, false, 0>;
+  return launch(
+      dec, best, out, B, T, G, S, msb, D, rowp, (int)frame, threads, grid,
+      (size_t)smem_bytes, (cudaStream_t)stream);
 }

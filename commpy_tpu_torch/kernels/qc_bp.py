@@ -69,8 +69,8 @@ import numpy as np
 import torch
 
 from ..utils.device import device_constant
-from . import (H100_SMS, SM_SMEM, SMEM_LIMIT, SMEM_PER_BLOCK, _build,
-               sm_count)
+from . import (H100_SMS, SM_BLOCKS, SM_SMEM, SMEM_LIMIT, SMEM_PER_BLOCK,
+               _build, sm_count)
 
 __all__ = ["qc_bp_resident", "qc_bp_resident_plain", "qc_bp_streamed",
            "qc_bp_streamed_plain", "resident_smem_bytes", "resident_plan",
@@ -86,7 +86,6 @@ STREAMED_KMAX = (8, 16, 32)  # K5's compile-time row bounds
 STREAMED_REGS = {8: 72, 16: 128, 32: 128}
 RESIDENT_KMAX = (8, 16, 32)  # K4's compile-time row bounds
 SM_REGS = 65_536  # registers of one H100 SM
-SM_BLOCKS = 32  # resident blocks one H100 SM holds at most
 LLR_MAX = 500.0  # reference ldpc.py:11 clipping
 _BIG = 3e38  # empty leave-one-out minimum (the Pallas kernels' constant)
 _MASKED_V2C = 1e30  # v2c of a masked edge position: neutral in SPA and MSA
@@ -120,10 +119,12 @@ def resident_plan(Z: int, Nb: int, Mb: int, E: int, kmax: int,
     device memory), and the packed tables.
 
     Returns kmax_t, threads, loop, frame_bytes, table_bytes and
-    smem_bytes.  Raises ValueError where the frame and the tables exceed
-    :data:`SMEM_LIMIT` or a row exceeds 32 blocks, and NotImplementedError
-    for a layered code with a repeated column whose Z exceeds the block's
-    threads.
+    smem_bytes.  Raises ValueError where a row exceeds 32 blocks or the
+    frame exceeds :data:`SMEM_LIMIT` (by :func:`resident_smem_bytes`, or
+    with the tables), and NotImplementedError for Z past :data:`MAX_Z`
+    or a layered code with a repeated column whose Z exceeds the block's
+    threads.  The wrapper launches by it and
+    ``ops/qcldpc.py:select_backend`` routes by it, so the two agree.
     """
     if schedule not in ("flooding", "layered"):
         raise ValueError('schedule must be "flooding" or "layered"')
@@ -131,6 +132,15 @@ def resident_plan(Z: int, Nb: int, Mb: int, E: int, kmax: int,
     if kmax_t is None:
         raise ValueError(f"check block rows of {kmax} blocks exceed "
                          f"{RESIDENT_KMAX[-1]}")
+    if Z > MAX_Z:
+        raise NotImplementedError(f"the CUDA qc_bp_resident kernel takes "
+                                  f"Z <= {MAX_Z} (got Z={Z})")
+    need = resident_smem_bytes(Nb * Z, Z, E)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"QC code too large for the resident kernel ({need} bytes of "
+            f"shared memory per frame, {SMEM_LIMIT} available); use "
+            f"backend='streamed' (layered) or 'torch'")
     work = Mb * Z if schedule == "flooding" else Z
     threads = min(-(-work // 32) * 32, resident_max_threads(kmax_t,
                                                             schedule))
@@ -186,8 +196,13 @@ def streamed_plan(Z: int, Nb: int, kmax: int, E: int, B: int,
     Returns Zp, kmax_t (the compile-time row bound), threads, smem_bytes,
     frames_per_sm, grid, store_bytes (of the frames in flight) and
     store_elems.  Raises ValueError when one frame's totals and ring
-    exceed :data:`SMEM_LIMIT`.
+    exceed :data:`SMEM_LIMIT` or a row exceeds 32 blocks, and
+    NotImplementedError for Z past :data:`MAX_Z_STREAMED`.  The wrapper
+    launches by it and ``ops/qcldpc.py:select_backend`` routes by it.
     """
+    if Z > MAX_Z_STREAMED:
+        raise NotImplementedError(f"the CUDA qc_bp_streamed kernel takes "
+                                  f"Z <= {MAX_Z_STREAMED} (got Z={Z})")
     Zp, tb = _streamed_sizes(Z, msg_io)
     smem = streamed_smem_bytes(Z, Nb, kmax, E, msg_io)
     if smem > SMEM_LIMIT:
@@ -501,14 +516,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda(llr, g, name, max_z=MAX_Z):
+def _check_cuda(llr, name):
     if llr.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {llr.device}")
-    if g["kmax"] > MAX_ROW_BLOCKS or g["Z"] > max_z:
-        raise NotImplementedError(
-            f"the CUDA {name} kernel takes check block rows of at most "
-            f"{MAX_ROW_BLOCKS} blocks and Z <= {max_z} (got "
-            f"{g['kmax']} blocks, Z={g['Z']})")
     if not llr.is_contiguous():
         raise ValueError("llr must be contiguous")
 
@@ -518,24 +528,18 @@ def qc_bp_resident(llr: torch.Tensor, algorithm: str, n_iters: int, meta,
                    msa_offset: float = 0.0):
     """Resident QC BP (K4): returns (dec ``[B, n]`` int8, posterior
     ``[B, n]`` float32).  CUDA tensors launch the kernel; CPU tensors run
-    :func:`qc_bp_resident_plain`.  Raises ``ValueError`` for a code whose
-    messages, LLRs and totals exceed :data:`SMEM_LIMIT`."""
+    :func:`qc_bp_resident_plain`.  On either device, raises for a code
+    the kernel refuses (:func:`resident_plan`)."""
     _check(llr, algorithm, meta, n_iters)
     if schedule not in ("flooding", "layered"):
         raise ValueError('schedule must be "flooding" or "layered"')
     g = _graph(meta)
-    need = resident_smem_bytes(g["Nb"] * g["Z"], g["Z"], g["E"])
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"QC code too large for the resident kernel ({need} bytes of "
-            f"shared memory per frame, {SMEM_LIMIT} available); use "
-            f"backend='streamed' (layered) or 'torch'")
+    plan = resident_plan(g["Z"], g["Nb"], g["Mb"], g["E"], g["kmax"],
+                         schedule, bool((g["row5"] < 0).any()))
     if llr.device.type == "cpu":
         return qc_bp_resident_plain(llr, algorithm, n_iters, meta, schedule,
                                     msa_scale, msa_offset)
-    _check_cuda(llr, g, "qc_bp_resident")
-    plan = resident_plan(g["Z"], g["Nb"], g["Mb"], g["E"], g["kmax"],
-                         schedule, bool((g["row5"] < 0).any()))
+    _check_cuda(llr, "qc_bp_resident")
     B, n = llr.shape
     dev = llr.device
     dec = torch.empty((B, n), dtype=torch.int8, device=dev)
@@ -568,23 +572,17 @@ def qc_bp_streamed(llr: torch.Tensor, algorithm: str, n_iters: int, meta,
     posterior ``[B, n]`` float32).  CUDA tensors launch the kernel by
     :func:`streamed_plan`, with a message store (float32, or bfloat16 for
     ``msg_io='bf16'``) for the frames in flight from ``torch.empty``; CPU
-    tensors run :func:`qc_bp_streamed_plain`.  Raises ``ValueError`` when
-    a frame's totals and message ring exceed :data:`SMEM_LIMIT`."""
+    tensors run :func:`qc_bp_streamed_plain`.  On either device, raises
+    for a code the kernel refuses (:func:`streamed_plan`)."""
     _check(llr, algorithm, meta, n_iters)
     g = _graph(meta, tuple(pos_masks))
-    need = streamed_smem_bytes(g["Z"], g["Nb"], g["kmax"], g["E"], msg_io)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"QC code too large even for the streamed kernel ({need} bytes "
-            f"of totals and message ring per frame, {SMEM_LIMIT} "
-            f"available); use backend='torch'")
+    plan = streamed_plan(g["Z"], g["Nb"], g["kmax"], g["E"], llr.shape[0],
+                         msg_io, sm_count(llr.device.index) if llr.is_cuda
+                         else H100_SMS)
     if llr.device.type == "cpu":
         return qc_bp_streamed_plain(llr, algorithm, n_iters, meta, msa_scale,
                                     msa_offset, pos_masks, msg_io)
-    _check_cuda(llr, g, "qc_bp_streamed", MAX_Z_STREAMED)
-    sms = sm_count(llr.device.index)
-    plan = streamed_plan(g["Z"], g["Nb"], g["kmax"], g["E"], llr.shape[0],
-                         msg_io, sms)
+    _check_cuda(llr, "qc_bp_streamed")
     return _streamed_launch(llr, g, algorithm, n_iters, msa_scale,
                             msa_offset, msg_io, plan)
 

@@ -17,9 +17,11 @@ persistent path-metric scratch.  The ACS launch plan (:func:`acs_plan`, a
 pure function of S, n and B) picks one of two layouts: for S <= 64 a
 warp walks 64/S frames, a lane owning a butterfly (two states), with no
 block barrier in the step loop; for S >= 128 a block of S threads walks
-one frame, a thread a state.  Both kernels take binary-input,
-shift-structured trellises only; ``ops/viterbi.py`` routes every other
-trellis to its general path.
+one frame, a thread a state.  The traceback walks every window in full,
+a warp a frame and a lane four positions side by side, a back-step one
+shared-memory read and three integer instructions (:func:`traceback_plan`).
+Both kernels take binary-input, shift-structured trellises only;
+``ops/viterbi.py`` routes every other trellis to its general path.
 
 Layouts: r ``[B, T, n]`` f32; C ``[2, S, n]`` f32 with ``bm(j, s) =
 r_t . C[j, s]``; hconst ``[2, S]`` f32 or None (the hard metric's
@@ -34,10 +36,12 @@ import functools
 
 import torch
 
-from . import _build
+from . import (H100_SMS, SM_BLOCKS, SM_SMEM, SM_WARPS, SMEM_LIMIT,
+               SMEM_PER_BLOCK, _build)
 
 __all__ = ["acs_forward", "traceback", "acs_forward_plain",
-           "traceback_plain", "acs_plan", "MAX_STATES", "MAX_N"]
+           "traceback_plain", "traceback_merge_plain", "acs_plan",
+           "traceback_plan", "MAX_STATES", "MAX_N"]
 
 MAX_STATES = 1024  # the block layout: one thread per state
 MAX_N = 8  # widest codeword the ACS kernel holds in registers
@@ -46,6 +50,7 @@ UNREACHED = 3.0e37  # initial metric of every state but 0
 _CHUNK = 32  # received steps staged in shared memory at a time
 _WARPS_A_BLOCK = 4  # warps of a warp-layout block, shared memory allowing
 _SMEM_DEFAULT = 48 * 1024  # shared memory a block gets without opting in
+TB_LANES = 32  # traceback_merge_plain's lanes a frame, by default
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,13 +59,17 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.acs_forward_launch.argtypes = [p, p, p, p, p, *[i] * 9, p]
     lib.acs_forward_launch.restype = i
-    lib.traceback_launch.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.traceback_launch.argtypes = [p, p, p, *[i] * 10, p]
     lib.traceback_launch.restype = i
     return lib
 
 
 def _words(S: int) -> int:
     return -(-S // 32)
+
+
+def _align16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
 
 
 def acs_plan(S: int, n: int, B: int) -> dict:
@@ -244,10 +253,142 @@ def traceback_plain(dec: torch.Tensor, best: torch.Tensor, S: int,
     return (cur >> max(S.bit_length() - 2, 0)).to(torch.int8)
 
 
+def _tb_run(T: int, lanes: int) -> int:
+    """Positions a lane of the merge-aware walk owns: ceil(T/lanes)."""
+    return max(1, -(-T // lanes))
+
+
+def _tb_ring(T: int, tb_depth: int) -> int:
+    """States a lane keeps of its window's path: the window's
+    tb_depth - 1 states (at most T), rounded up to a power of two."""
+    return 1 << (min(tb_depth, T + 1) - 2).bit_length()
+
+
+def traceback_merge_plain(dec: torch.Tensor, best: torch.Tensor, S: int,
+                          tb_depth: int, lanes: int = TB_LANES):
+    """The merge-aware traceback in plain PyTorch: returns (bits ``[B, T]``
+    int8, back-steps ``[B, lanes]``).
+
+    Lane l owns positions ``[l*run, (l+1)*run)`` (:func:`_tb_run`) and
+    decodes them in order.  It walks its first window in full, keeping
+    the path's states in a ring (:func:`_tb_ring`, indexed by t modulo
+    its size).  When the window moves up a step, the new path is walked
+    back from the new window end only until it reaches a state the ring
+    already holds at that time: below that the two paths are one, since
+    a step's predecessor is a function of the state alone.  Each bit is
+    the MSB of the ring's state at the position.  The result equals
+    :func:`traceback_plain` bit for bit, ties included.
+
+    It counts the back-steps a merge-aware walk needs on given decisions
+    (about 1/13 of the full walks at the 802.11 MCS-4 shape), which
+    ``chip_smoke.py`` reports beside K2's own count: a CUDA kernel of this
+    walk was measured slower than K2's full walks (PERF.md).  Used by the
+    tests and ``chip_smoke.py``, never by the decoder.
+    """
+    _check_traceback(dec, best, S, tb_depth)
+    B, T, _ = dec.shape
+    dev = dec.device
+    D = min(tb_depth, T + 1)
+    run, R = _tb_run(T, lanes), _tb_ring(T, tb_depth)
+    words = dec.long() & 0xFFFFFFFF
+    bidx = torch.arange(B, device=dev)[:, None]
+    lane = torch.arange(lanes, device=dev)
+    half, msb = S // 2 - 1, max(S.bit_length() - 2, 0)
+    ring = torch.zeros((B, lanes, R), dtype=torch.long, device=dev)
+    bits = torch.zeros((B, lanes * run), dtype=torch.int8, device=dev)
+    steps = torch.zeros((B, lanes), dtype=torch.long, device=dev)
+    p0 = lane * run
+
+    def pred(c, t):  # the state at t - 1 on the path through c at t
+        j = (words[bidx, t.clamp(0, T - 1), c >> 5] >> (c & 31)) & 1
+        return ((c & half) << 1) | j
+
+    def put(c, t, where):
+        slot = (t & (R - 1)).expand(B, lanes)[..., None]
+        old = ring.gather(2, slot)[..., 0]
+        ring.scatter_(2, slot, torch.where(where, c, old)[..., None])
+
+    on = (p0 < T).expand(B, lanes)
+    w = torch.clamp(p0 + D - 2, max=T - 1)
+    c = best[bidx, w.clamp(0, T - 1)].long()
+    put(c, w, on)
+    for k in range(D - 2):
+        t = w - k
+        go = on & (t > p0)
+        c = torch.where(go, pred(c, t), c)
+        put(c, t - 1, go)
+        steps += go
+    for i in range(run):
+        p = p0 + i
+        act = (p < T).expand(B, lanes)
+        if i:
+            moved = act & (p + D - 2 <= T - 1)
+            w = torch.where(p + D - 2 <= T - 1, p + D - 2, w)
+            c = best[bidx, w.clamp(0, T - 1)].long()
+            put(c, w, moved)
+            walking = moved
+            for k in range(D - 2):
+                t = w - k
+                can = walking & (t > p)
+                if not bool(can.any()):
+                    break
+                c = pred(c, t)
+                slot = ((t - 1) & (R - 1)).expand(B, lanes)[..., None]
+                merged = ring.gather(2, slot)[..., 0] == c
+                steps += can
+                walking = can & ~merged
+                put(c, t - 1, walking)
+        slot = (p & (R - 1)).expand(B, lanes)[..., None]
+        bits[:, p] = (ring.gather(2, slot)[..., 0] >> msb).to(torch.int8)
+    return bits[:, :T], steps
+
+
+def traceback_plan(S: int, T: int, tb_depth: int, B: int,
+                   sms: int = H100_SMS) -> dict:
+    """K2's launch plan, a pure function of the states, the frame length,
+    the traceback depth and the batch.
+
+    A warp decodes a frame, a lane four positions side by side (128 a
+    warp step).  The frame's decisions are staged in shared memory when
+    they fit (``staged``), in rows ``row`` words apart: 1, or G + 1 from
+    G = 2 (odd, so that the 32 lanes' reads of 32 consecutive rows fall
+    in distinct banks).  Frames a block: of 8, 4, 2 and 1, the one that
+    lets an SM hold the most frames at once.
+
+    Returns D (the depth the kernel walks, min(tb_depth, T + 1)), row,
+    staged, frame_bytes, frames_per_block, threads, smem_bytes, grid,
+    frames_per_sm (by shared memory, blocks and warps) and waves.
+    """
+    if S < 2 or S & (S - 1) or S > MAX_STATES:
+        raise ValueError(f"S must be a power of 2 in [2, {MAX_STATES}], "
+                         f"got {S}")
+    if tb_depth < 2 or T < 1:
+        raise ValueError(f"need tb_depth >= 2 and T >= 1 (got {tb_depth}, "
+                         f"{T})")
+    G = _words(S)
+    row = 1 if G == 1 else G + 1
+    frame = _align16(4 * T * row)
+    staged = frame <= SMEM_LIMIT
+    frame = frame if staged else 0
+
+    def resident(f):  # frames an SM holds at f frames a block
+        return f * min(SM_SMEM // (f * frame + SMEM_PER_BLOCK), SM_BLOCKS,
+                       SM_WARPS // f)
+    F = max((f for f in (8, 4, 2, 1) if f * frame <= SMEM_LIMIT),
+            key=lambda f: (resident(f), -f))
+    blocks = resident(F) // F
+    return {"D": min(tb_depth, T + 1), "row": row, "staged": staged,
+            "frame_bytes": frame, "frames_per_block": F, "threads": 32 * F,
+            "smem_bytes": F * frame, "grid": max(1, -(-B // F)),
+            "frames_per_sm": F * blocks,
+            "waves": -(-B // (F * blocks * sms))}
+
+
 def traceback(dec: torch.Tensor, best: torch.Tensor, S: int,
               tb_depth: int) -> torch.Tensor:
     """Sliding-window traceback: returns bits ``[B, T]`` int8.  CUDA
-    tensors launch the kernel; CPU tensors run :func:`traceback_plain`."""
+    tensors launch the kernel by :func:`traceback_plan`; CPU tensors run
+    :func:`traceback_plain`."""
     _check_traceback(dec, best, S, tb_depth)
     if dec.device.type == "cpu":
         return traceback_plain(dec, best, S, tb_depth)
@@ -258,10 +399,12 @@ def traceback(dec: torch.Tensor, best: torch.Tensor, S: int,
     B, T, G = dec.shape
     out = torch.empty((B, T), dtype=torch.int8, device=dec.device)
     if B and T:
+        plan = traceback_plan(S, T, tb_depth, B)
         with torch.cuda.device(dec.device):
             rc = _lib().traceback_launch(
                 dec.data_ptr(), best.data_ptr(), out.data_ptr(), B, T, G, S,
-                min(tb_depth, T + 1),
+                plan["D"], plan["row"], int(plan["staged"]), plan["threads"],
+                plan["grid"], plan["smem_bytes"],
                 torch.cuda.current_stream(dec.device).cuda_stream)
         if rc:
             raise RuntimeError(f"traceback kernel launch failed: CUDA "

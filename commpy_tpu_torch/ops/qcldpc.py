@@ -15,9 +15,10 @@ of the Z axis.
   (dense GF(2) ``P`` product, or the structured dual-diagonal path).
 * :func:`qc_bp_decode_device` decodes with SPA or (normalised/offset)
   MSA, flooding or layered.  ``backend='auto'`` routes by
-  :func:`select_backend`: the resident kernel K4 when the code's
-  messages fit in shared memory, else the streamed layered kernel K5
-  when the totals do, else the plain PyTorch core ``_qc_bp_core`` (the
+  :func:`select_backend`: the resident kernel K4 when it takes the code
+  on the card (its messages fit in shared memory, its rows and Z within
+  the kernel's limits), else the streamed layered kernel K5 when it
+  does, else the plain PyTorch core ``_qc_bp_core`` (the
   counterpart of the JAX package's XLA core, on the ``[B, Mb, Z, K]``
   edge tensor).  The kernels live in ``kernels/qc_bp.py``.
 """
@@ -28,10 +29,8 @@ import functools
 import numpy as np
 import torch
 
-from ..kernels.qc_bp import (LLR_MAX, MAX_Z_STREAMED, SMEM_LIMIT,
-                             qc_bp_resident, qc_bp_streamed,
-                             resident_smem_bytes,
-                             sign_keep_zero, streamed_smem_bytes)
+from ..kernels.qc_bp import (LLR_MAX, qc_bp_resident, qc_bp_streamed,
+                             resident_plan, sign_keep_zero, streamed_plan)
 from ..utils.device import device_constant, on_device, resolve_device
 
 __all__ = [
@@ -744,26 +743,34 @@ def qc_rows(qc_params: dict) -> tuple:
 def select_backend(qc_params: dict, schedule: str = "flooding") -> str:
     """The decoder ``backend='auto'`` runs for this code and schedule.
 
-    ``'resident'`` (K4) when the frame's messages, channel LLRs and
-    totals fit in the shared memory one block may use
-    (:func:`~commpy_tpu_torch.kernels.qc_bp.resident_smem_bytes`) and the
-    code has no per-position edge masks; else ``'streamed'`` (K5) for
-    the layered schedule when its totals and two-slot message ring fit
-    (:func:`~commpy_tpu_torch.kernels.qc_bp.streamed_smem_bytes`, float32
-    messages) and Z <= 512; else ``'torch'``, the plain
-    core, as the JAX package takes its XLA core past its kernels'
-    budgets.  A pure function of the code: the same on every device.
+    ``'resident'`` (K4) when the code has no per-position edge masks and
+    K4 takes it on the card; else ``'streamed'`` (K5) for the layered
+    schedule when K5 takes it; else ``'torch'``, the plain core, as the
+    JAX package takes its XLA core past its kernels' budgets.  "Takes
+    it" is the kernel's launch plan
+    (:func:`~commpy_tpu_torch.kernels.qc_bp.resident_plan`,
+    :func:`~commpy_tpu_torch.kernels.qc_bp.streamed_plan`, float32
+    messages), which its wrapper launches by: row width, Z, and the
+    shared memory of a frame.  A pure function of the code: the same on
+    every device.
     """
     Z, Nb = int(qc_params["Z"]), int(qc_params["Nb"])
-    n = Nb * Z
-    row_blocks = np.sum(np.asarray(qc_params["block_j"]) >= 0, axis=1)
-    nnz, kmax = int(row_blocks.sum()), int(row_blocks.max())
-    if (not qc_params.get("pos_masks")
-            and resident_smem_bytes(n, Z, nnz) <= SMEM_LIMIT):
-        return "resident"
-    if (schedule == "layered" and Z <= MAX_Z_STREAMED
-            and streamed_smem_bytes(Z, Nb, kmax, nnz) <= SMEM_LIMIT):
-        return "streamed"
+    rows = qc_rows(qc_params)
+    Mb, E, kmax = len(rows), sum(map(len, rows)), max(map(len, rows))
+    repeat = any(len({j for j, _ in r}) < len(r) for r in rows)
+    plans = {"resident": lambda: resident_plan(Z, Nb, Mb, E, kmax, schedule,
+                                               repeat),
+             "streamed": lambda: streamed_plan(Z, Nb, kmax, E, 1)}
+    if qc_params.get("pos_masks"):
+        del plans["resident"]
+    if schedule != "layered":
+        del plans["streamed"]
+    for kernel, plan in plans.items():
+        try:
+            plan()
+        except (ValueError, NotImplementedError):
+            continue
+        return kernel
     return "torch"
 
 

@@ -61,6 +61,70 @@ def _graph(p):
     return K._graph((p["Z"], p["Nb"], PQ.qc_rows(p)), PQ._pos_masks(p))
 
 
+def _synthetic(Z, Nb, rows, pos_masks=()):
+    """A QC code's params with check block rows ``rows`` (block columns;
+    shifts made up), for routing only."""
+    K_ = max(map(len, rows))
+    bj = np.full((len(rows), K_), -1)
+    bs = np.zeros((len(rows), K_), np.int64)
+    for i, r in enumerate(rows):
+        bj[i, :len(r)] = r
+        bs[i, :len(r)] = [(7 * i + 3 * k) % Z for k in range(len(r))]
+    return {"Z": Z, "Nb": Nb, "Mb": len(rows), "K": K_, "block_j": bj,
+            "block_s": bs, "pos_masks": list(pos_masks)}
+
+
+# synthetic codes at and just past each limit K4 and K5 hold a code to on
+# the card, and where backend='auto' must send them (flooding, layered)
+LIMITS = {
+    "row-of-32": (_synthetic(8, 32, [list(range(32))]),
+                  ("resident", "resident")),
+    "row-of-33": (_synthetic(8, 33, [list(range(33))]), ("torch", "torch")),
+    "z-1024": (_synthetic(1024, 2, [[0, 1]]), ("resident", "resident")),
+    "z-1032": (_synthetic(1032, 2, [[0, 1]]), ("torch", "torch")),
+    "repeat-z-512": (_synthetic(512, 2, [[0, 0, 1]]),
+                     ("resident", "resident")),
+    "repeat-z-520": (_synthetic(520, 2, [[0, 0, 1]]), ("resident", "torch")),
+    # 700 rows of 32 blocks at Z=1: the frame fits resident_smem_bytes's
+    # count, but not with the graph tables K4 keeps beside it
+    "tables-past-227kb": (_synthetic(1, 32, [list(range(32))] * 700),
+                          ("torch", "streamed")),
+    "masks-z-512": (_synthetic(512, 2, [[0, 1]], [(0, 1, (3,))]),
+                    ("torch", "streamed")),
+    "masks-z-520": (_synthetic(520, 2, [[0, 1]], [(0, 1, (3,))]),
+                    ("torch", "torch")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LIMITS))
+def test_select_backend_names_no_kernel_that_refuses_the_code(name):
+    p, routes = LIMITS[name]
+    g = _graph(p)
+    sizes = (g["Z"], g["Nb"], g["Mb"], g["E"], g["kmax"])
+    repeat = bool((g["row5"] < 0).any())
+    for schedule, want in zip(("flooding", "layered"), routes):
+        assert PQ.select_backend(p, schedule) == want
+        for kernel in ("resident", "streamed"):
+            takes = kernel == "resident" or schedule == "layered"
+            try:
+                if kernel == "resident":
+                    K.resident_plan(*sizes, schedule, repeat)
+                else:
+                    Z, Nb, _, E, kmax = sizes
+                    K.streamed_plan(Z, Nb, kmax, E, 1)
+            except (ValueError, NotImplementedError):
+                takes = False
+            if kernel == "resident" and p["pos_masks"]:
+                takes = False
+            # the router names a kernel exactly when it takes the code
+            # and no kernel before it in the order K4, K5 does
+            if want == kernel:
+                assert takes
+            elif want == "torch" or (want == "streamed"
+                                     and kernel == "resident"):
+                assert not takes
+
+
 @pytest.mark.parametrize("msg_io", ["f32", "bf16"])
 @pytest.mark.parametrize("name", sorted(n for n, r in ROUTES.items()
                                         if n != "dvbs2-64800"))
@@ -250,6 +314,53 @@ def test_acs_plan_at_the_mcs4_shape_and_its_limits():
     for bad in ((3, 2), (2048, 2), (64, 9), (64, 0)):
         with pytest.raises(ValueError):
             VK.acs_plan(*bad, 8)
+
+
+# --------------------------------------------------------------------------
+# K2: the traceback launch plan (kernels/viterbi_acs.py:traceback_plan)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S,T,tb,B", [
+    (64, 1205, 30, 2048),   # MCS-4
+    (64, 1029, 30, 2048),   # bench.py
+    (2, 1, 2, 1), (2, 31, 3, 5), (4, 33, 30, 7), (1024, 100, 30, 3),
+    (1024, 1784, 30, 2), (64, 300, 301, 3), (64, 300, 2000, 3),
+    (64, 5000, 6000, 2), (1024, 3000, 3001, 2), (2, 58_200, 30, 2),
+])
+def test_traceback_plan_covers_every_frame_and_fits_a_block(S, T, tb, B):
+    plan = VK.traceback_plan(S, T, tb, B)
+    assert plan["D"] == min(tb, T + 1)
+    # every frame once: a warp a frame, F frames a block
+    F = plan["frames_per_block"]
+    assert plan["threads"] == 32 * F and F in (1, 2, 4, 8)
+    assert (plan["grid"] - 1) * F < B <= plan["grid"] * F
+    # rows of staged decisions an odd number of words apart (1, or G + 1)
+    G = -(-S // 32)
+    assert plan["row"] == (1 if G == 1 else G + 1) and plan["row"] % 2
+    frame = -(-4 * T * plan["row"] // 16) * 16
+    assert plan["staged"] == (frame <= K.SMEM_LIMIT)
+    assert plan["frame_bytes"] == (frame if plan["staged"] else 0)
+    assert plan["smem_bytes"] == F * plan["frame_bytes"] <= K.SMEM_LIMIT
+    # the frames an SM holds: its shared memory (1 KB a block besides),
+    # 32 blocks and 64 warps
+    blocks = plan["frames_per_sm"] // F
+    assert blocks * (plan["smem_bytes"] + K.SMEM_PER_BLOCK) <= K.SM_SMEM
+    assert 1 <= blocks <= 32 and blocks * F <= 64
+    assert plan["waves"] == -(-B // (plan["frames_per_sm"] * 132))
+
+
+def test_traceback_plan_puts_the_mcs4_shape_in_one_wave():
+    plan = VK.traceback_plan(64, 1205, 30, 2048)
+    # 14.5 KB of decisions a frame (rows of three words), eight frames a
+    # block, two blocks an SM: 16 frames x 132 SMs >= 2048
+    assert (plan["row"], plan["frame_bytes"]) == (3, 14_464)
+    assert (plan["frames_per_block"], plan["frames_per_sm"]) == (8, 16)
+    assert 2 * (plan["smem_bytes"] + K.SMEM_PER_BLOCK) == K.SM_SMEM
+    assert plan["waves"] == 1 and plan["grid"] == 256
+    assert VK.traceback_plan(64, 1029, 30, 2048)["waves"] == 1
+    for bad in ((3, 10, 5), (2048, 10, 5), (64, 10, 1), (64, 0, 5)):
+        with pytest.raises(ValueError):
+            VK.traceback_plan(*bad, 4)
 
 
 # --------------------------------------------------------------------------
