@@ -81,6 +81,31 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the turbo decoder at the JAX bench's configurations, and the Path A
    and Path C link steps, with their profiles.
 
+11. (run between 9 and 10) Paths D-G, each through ``montecarlo_ber`` with the kernel counts
+   set to 0 just before and read just after, then timed and profiled
+   (step time, info bits/s, device busy share, top device operations,
+   the kernels the step launched): D, the uncoded K-best(16) 4x4 16-QAM
+   link at F=2048 (65,536 vectors a step), BER at 16.02 dB within rtol
+   1.25 of the reference's 3e-2 and no error at 60 dB, and the K-best
+   search on the card against its plain version on the host on the same
+   draws, and 2x2 ML on their first two antennas (at most 1e-4 of vectors
+   differing); E, best-first(32) detection
+   with WiMAX LDPC (1440, 720) MSA-15 on K4 at F=512, BER at 17/18/19 dB
+   within rtol 2 of (1.7e-1, 1e-1, 2.5e-3) and at most 1.5x each, K-best(16)
+   soft detection under 2e-2 at 21 dB; F, BASELINE configuration 5 (OFDM,
+   2x2 16-QAM K-best(8), K=7 soft Viterbi on K1 and K2) at F=2048, under
+   1% errors at 35 dB and more at 5 dB; G, the 802.11n (1944, 1/2) 16-QAM
+   OFDM-LDPC link over a 4-tap Rayleigh channel at F=512, every CSI mode
+   clean at 35 dB, smoothed CSI no worse than LS at 13 dB on the same
+   draws, blind CP CFO sync a hundred times better than no correction at
+   the JAX package's own configuration (648, QPSK, CFO 0.31) and ten
+   times better at 1944 (the estimator's floor under multipath is
+   reported beside it, with no CFO);
+   K4 on E's and G's own LLRs and K1, K2 on F's (with their +-inf values)
+   against their plain versions, bit for bit; then 'auto' decoding of a
+   K=12 code and a 32-state turbo code (the general and torch routes)
+   against the plain routes, with ``backend='cuda'`` raising;
+
 With ``--ab DIR`` (a checkout of another commit, e.g. the parent unpacked
 with ``git archive``), it also loads that checkout's ``commpy_tpu_torch``
 under another name, builds its kernels there, and times its K1, K2 and
@@ -451,7 +476,8 @@ def profile_link_step(torch, link, gen, noise_std, step_s, steps=2,
            "device_idle_share": (1 - busy_ms / (step_s * 1e3)
                                  if busy_ms else "not measured"),
            "stages_device_ms_per_step": stages,
-           "kernels": rows[:25]}
+           "kernels": rows[:25],
+           "kernel_names": [row["kernel"] for row in rows]}
     top = ", ".join(f"{row['kernel'][:40]} {row['ms_per_step']:.3f}"
                     for row in rows[:6])
     split = ", ".join(f"{k} {v.get('device_span_ms', float('nan')):.3f}"
@@ -1079,6 +1105,358 @@ def ab_compare(torch, runs):
     return out
 
 
+def link_draws(torch, link, frames, seed):
+    """Bits, unit complex noise and channel of a MIMO or OFDM link, drawn
+    as its ``link_step`` draws them."""
+    from commpy_tpu_torch.ops.channel import crandn
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    bits = torch.randint(0, 2, (frames, link.frame_bits), generator=g,
+                         device=dev, dtype=torch.int8)
+    noise = crandn(g, (frames,) + link.extras["noise_shape"], dev)
+    h = crandn(g, (frames,) + link.extras["channel_shape"], dev) * \
+        link.extras["channel_scale"]
+    return bits, noise, h
+
+
+def step_errors(torch, link, frames, snr_db, seed):
+    """Bit errors of one ``link_step`` of ``frames`` frames at ``snr_db``."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return int(link.link_step(g, frames, float(link.noise_std_fn(snr_db))))
+
+
+def time_link(torch, link, frames, snr_db, seed, label, reps=3):
+    """Step time (s), info bits/s and the profile of one link."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    ns = float(link.noise_std_fn(snr_db))
+    link.link_step(g, frames, ns)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        link.link_step(g, frames, ns)
+    torch.cuda.synchronize()
+    step = (time.perf_counter() - t0) / reps
+    prof = profile_link_step(torch, link, g, ns, step, steps=2,
+                             frames=frames, label=label)
+    names = prof["kernel_names"]
+    ours = [n for n in names if any(k in n for k in KERNEL_NAMES)]
+    print(f"{label}: step {step * 1e3:.3f} ms, "
+          f"{frames * link.frame_bits / step:.4g} info bits/s at "
+          f"{snr_db:.2f} dB; {len(names)} device kernels, of them the "
+          f"port's: {ours}", flush=True)
+    return {"step_s": step, "info_bits_per_s": frames * link.frame_bits
+            / step, "snr_db": snr_db, "frames": frames, "profile": prof}
+
+
+def require_kernels(timing, label, wanted):
+    for w in wanted:
+        if not any(w in name for name in timing["profile"]["kernel_names"]):
+            fail(f"{label}: the profiled step launched no {w}")
+
+
+def mc(link, snrs, seed, frames, rounds):
+    from commpy_tpu_torch.parallel import montecarlo_ber
+
+    return montecarlo_ber(link.link_step, snrs, link.noise_std_fn,
+                          link.frame_bits, seed=seed,
+                          frames_per_round=frames, max_rounds=rounds,
+                          err_min=10 ** 9, device="cuda")
+
+
+def k4_on(torch, qc_params, llr, tally):
+    """K4 against its plain version on a link's own LLRs (clipped as the
+    decoder clips them), MSA-15 flooding: decisions and posteriors bit
+    for bit."""
+    from commpy_tpu_torch.kernels import qc_bp as QK
+    from commpy_tpu_torch.ops.qcldpc import _llr_max, qc_rows
+
+    meta = (qc_params["Z"], qc_params["Nb"], qc_rows(qc_params))
+    x = torch.clamp(llr.reshape(llr.shape[0], -1), -_llr_max,
+                    _llr_max).contiguous()
+    qc_compare(torch, tally, QK.qc_bp_resident, QK.qc_bp_resident_plain, x,
+               True, False, algorithm="MSA", n_iters=15, meta=meta)
+
+
+def mimo_ofdm_paths(torch, report, k7):
+    """Paths D-G: the K-best MIMO link, the best-first WiMAX LDPC MIMO
+    link, the OFDM-MIMO conv link and the OFDM-LDPC link, each through
+    ``montecarlo_ber`` with the kernel counts set to 0 just before and
+    read just after; the kernels of each path against their plain
+    versions on the path's own inputs; the links' rates and profiles.
+    Returns {kernel: {path: launches}} and the parity tallies."""
+    from commpy_tpu_torch.kernels import qc_bp as QK
+    from commpy_tpu_torch.kernels import viterbi_acs as K
+    from commpy_tpu_torch.models import (make_bestfirst_ldpc_mimo_link,
+                                         make_kbest_mimo_link,
+                                         make_ofdm_mimo_conv_link,
+                                         make_ofdm_qcldpc_link)
+    from commpy_tpu_torch.ops import ldpc as L
+    from commpy_tpu_torch.ops import modem as M
+    from commpy_tpu_torch.ops import qcldpc as Q
+    from commpy_tpu_torch.ops.mimo import kbest_device, mimo_ml_device
+    from commpy_tpu_torch.ops.viterbi import (received_words,
+                                              viterbi_decode_device)
+    from commpy_tpu_torch.utils import small_matmul
+
+    launches = {"acs_forward": {}, "traceback": {}, "qc_bp_resident": {}}
+    k4_tally = QCTally()
+    k12_tallies = {"acs_forward": Tally(), "traceback": Tally()}
+    out = {}
+
+    # ---- Path D: uncoded 4x4 16-QAM K-best(16), 65,536 vectors a step
+    kb = make_kbest_mimo_link(nb_tx=4, nb_rx=4, modulation_m=16, K=16,
+                              vectors_per_frame=32)
+    snr_d = 10.0 + 10 * np.log10(4)
+    res = mc(kb, [snr_d], 30, 2048, 2)
+    e60 = step_errors(torch, kb, 2048, 60.0, 31)
+    ber_d = float(res.bers[0])
+    # K-best on the card against the plain search on the host, same draws
+    bits, noise, h = link_draws(torch, kb, 2048, 32)
+    const = M.qam_constellation(16).astype(np.complex64)
+    x = M.modulate(bits, const, 4).reshape(2048, 32, 4)
+    ns = float(np.float32(kb.noise_std_fn(snr_d)))
+    y = small_matmul(h, x[..., None])[..., 0] + noise * float(
+        np.float32(ns) * np.float32(0.5))
+    yv, hv = y.reshape(-1, 4), h.reshape(-1, 4, 4)
+    xh = kbest_device(yv, hv, const, 16)
+    xh_cpu = kbest_device(yv.cpu(), hv.cpu(), const, 16, device="cpu")
+    differ = float((xh.cpu() != xh_cpu).any(-1).float().mean())
+    # exhaustive ML at a size whose candidate grid fits (2x2 16-QAM,
+    # [65536, 2, 256] complex64): the card against the host
+    y2, h2 = yv[:, :2].contiguous(), hv[:, :2, :2].contiguous()
+    ml = mimo_ml_device(y2, h2, const)
+    ml_differ = float((ml.cpu() != mimo_ml_device(
+        y2.cpu(), h2.cpu(), const, device="cpu")).any(-1).float().mean())
+    out["path_d"] = {"ber": ber_d, "snr_db": snr_d,
+                     "bits_sent": float(res.bits_sent[0]),
+                     "errs_60db": e60,
+                     "kbest_card_vs_cpu_vectors_differ": differ,
+                     "ml_2x2_card_vs_cpu_vectors_differ": ml_differ,
+                     "vectors": int(yv.shape[0])}
+    print(f"Path D K-best 4x4 16-QAM K=16 F=2048 (65,536 vectors): BER "
+          f"{ber_d:.4e} at {snr_d:.2f} dB (reference 3e-2, rtol 1.25); "
+          f"{e60} errors at 60 dB; K-best card vs host plain: {differ:.3e} "
+          f"of vectors differ; 2x2 ML card vs host: {ml_differ:.3e}",
+          flush=True)
+    if not abs(ber_d - 3e-2) <= 1.25 * 3e-2 or e60 != 0:
+        fail(f"Path D: BER {ber_d} at {snr_d:.2f} dB, {e60} errors at 60 dB")
+    if differ > 1e-4 or ml_differ > 1e-4:
+        fail(f"Path D: {differ} of vectors' K-best symbols and {ml_differ} "
+             f"of their ML symbols differ between the card and the host")
+    out["path_d"]["timing"] = time_link(torch, kb, 2048, snr_d, 33,
+                                        "Path D K-best MIMO")
+
+    # ---- Path E: best-first + WiMAX LDPC(1440,720) MSA-15 on K4
+    wimax = L.get_ldpc_code_params(os.path.join(L.DESIGNS, "wimax",
+                                                "1440.720.txt"), True)
+    bf = make_bestfirst_ldpc_mimo_link(ldpc_params=wimax, beam=32)
+    QK.qc_bp_resident.launches = 0
+    res = mc(bf, [17.0, 18.0, 19.0], 34, 512, 2)
+    launches["qc_bp_resident"]["E"] = QK.qc_bp_resident.launches
+    bers_e = [float(b) for b in res.bers]
+    desired = np.array([1.7e-1, 1e-1, 2.5e-3])
+    kbe = make_bestfirst_ldpc_mimo_link(ldpc_params=wimax, beam=16,
+                                        detector="kbest")
+    res_k = mc(kbe, [21.0], 35, 512, 1)
+    ber_k = float(res_k.bers[0])
+    out["path_e"] = {"bers": bers_e, "snrs_db": [17.0, 18.0, 19.0],
+                     "reference": desired.tolist(),
+                     "bits_sent": float(res.bits_sent[0]),
+                     "kbest16_21db_ber": ber_k,
+                     "launches": launches["qc_bp_resident"]["E"]}
+    print(f"Path E best-first(32) + WiMAX LDPC MSA-15, F=512 (46,080 "
+          f"vectors): BER {bers_e} at 17/18/19 dB (reference "
+          f"{desired.tolist()}, rtol 2, at most 1.5x); K-best(16) at 21 dB "
+          f"{ber_k:.3e}; qc_bp_resident launches "
+          f"{launches['qc_bp_resident']['E']}", flush=True)
+    if not (np.all(np.abs(np.array(bers_e) - desired) <= 2 * desired)
+            and np.all(np.array(bers_e) <= 1.5 * desired)):
+        fail(f"Path E BER {bers_e} is off the reference curve")
+    if not ber_k < 2e-2:
+        fail(f"Path E K-best(16) BER at 21 dB is {ber_k}")
+    if launches["qc_bp_resident"]["E"] == 0:
+        fail("Path E never launched qc_bp_resident")
+    qc_w = wimax["_qc_lift"]
+    for link, snr, seed in ((bf, 18.0, 36), (kbe, 21.0, 37)):
+        bits, noise, h = link_draws(torch, link, 512, seed)
+        llr = link.receive(bits, noise, float(link.noise_std_fn(snr)), h)
+        k4_on(torch, qc_w, llr, k4_tally)
+    out["path_e"]["timing"] = time_link(torch, bf, 512, 18.0, 38,
+                                        "Path E best-first LDPC MIMO")
+    require_kernels(out["path_e"]["timing"], "Path E",
+                    ["qc_bp_resident_kernel"])
+
+    # ---- Path F: OFDM + 2x2 16-QAM K-best(8) + K=7 soft Viterbi (config 5)
+    of = make_ofdm_mimo_conv_link(trellis=k7, modulation_m=16, nb_tx=2,
+                                  nb_rx=2, K=8, nfft=64, nsc=48, cp_length=16,
+                                  n_ofdm_symbols=4)
+    K.acs_forward.launches = 0
+    K.traceback.launches = 0
+    res = mc(of, [35.0, 5.0], 39, 2048, 1)
+    launches["acs_forward"]["F"] = K.acs_forward.launches
+    launches["traceback"]["F"] = K.traceback.launches
+    bers_f = [float(b) for b in res.bers]
+    out["path_f"] = {"bers": bers_f, "snrs_db": [35.0, 5.0],
+                     "bits_sent": float(res.bits_sent[0]),
+                     "launches": {k: v["F"] for k, v in launches.items()
+                                  if "F" in v}}
+    print(f"Path F OFDM 2x2 16-QAM K-best(8) + K=7 soft Viterbi, F=2048: "
+          f"BER {bers_f} at 35/5 dB; launches {out['path_f']['launches']}",
+          flush=True)
+    if not (bers_f[0] < 0.01 and bers_f[1] > bers_f[0]):
+        fail(f"Path F BER {bers_f} at 35/5 dB")
+    if not (launches["acs_forward"]["F"] and launches["traceback"]["F"]):
+        fail("Path F never launched the ACS or traceback kernel")
+    bits, noise, h = link_draws(torch, of, 2048, 40)
+    rx = of.receive(bits, noise, float(of.noise_std_fn(14.0)), h)
+    if not bool(torch.isinf(rx).any()):
+        fail("Path F: the detector gave no +-inf LLR to clip")
+    f_tallies = {"acs_forward": Tally(), "traceback": Tally()}
+    compare_case(torch, f_tallies, k7, "soft", 2048, of.frame_bits, 30, 0,
+                 r=received_words(rx, k7, "soft", of.frame_bits))
+    kern = viterbi_decode_device(rx, k7, 30, "soft", L=of.frame_bits)
+    plain = viterbi_decode_device(rx, k7, 30, "soft", L=of.frame_bits,
+                                  backend="torch")
+    f_tallies["traceback"].add(kern, plain)
+    for name, t in f_tallies.items():
+        if t.mismatches:
+            fail(f"Path F: {name} disagrees with its plain version on the "
+                 f"path's LLRs ({t.mismatches} of {t.compared})")
+    out["path_f"]["parity"] = {k: (t.mismatches, t.compared)
+                               for k, t in f_tallies.items()}
+    out["path_f"]["timing"] = time_link(torch, of, 2048, 14.0, 41,
+                                        "Path F OFDM-MIMO conv")
+    require_kernels(out["path_f"]["timing"], "Path F",
+                    ["acs_warp_kernel", "traceback_kernel"])
+
+    # ---- Path G: OFDM + 802.11n LDPC (1944, 1/2) 16-QAM, 4-tap Rayleigh
+    q1944 = Q.ieee80211n_params(1944, "1/2")
+
+    def ofdm(**kw):
+        return make_ofdm_qcldpc_link(qc_params=q1944, modulation_m=16, **kw)
+
+    g_links = {csi: ofdm(csi=csi) for csi in ("perfect", "ls", "smooth")}
+    QK.qc_bp_resident.launches = 0
+    res = mc(g_links["perfect"], [35.0, 13.0], 42, 512, 1)
+    launches["qc_bp_resident"]["G"] = QK.qc_bp_resident.launches
+    clean = {csi: step_errors(torch, lk, 512, 35.0, 43)
+             for csi, lk in g_links.items()}
+    # LS against its delay-subspace smoothing on the same draws
+    wf = {csi: step_errors(torch, g_links[csi], 512, 13.0, 44)
+          for csi in ("ls", "smooth")}
+    # blind CP sync: the JAX package's own configuration (648, QPSK,
+    # smoothed CSI, CFO 0.31) and this path's (1944, 16-QAM, LS CSI, 0.2)
+    q648 = Q.ieee80211n_params(648, "1/2")
+    cfo_648 = {c: step_errors(torch, make_ofdm_qcldpc_link(
+        qc_params=q648, modulation_m=4, csi="smooth", cfo=0.31,
+        cfo_correction=c), 512, 30.0, 45) for c in (True, False)}
+    cfo_1944 = {c: step_errors(torch, ofdm(csi="ls", cfo=0.2,
+                                           cfo_correction=c), 512, 35.0, 46)
+                for c in (True, False)}
+    cfo_1944_zero = step_errors(torch, ofdm(csi="ls", cfo_correction=True),
+                                512, 35.0, 46)
+    nb = 512 * 972
+    out["path_g"] = {"bers_perfect": [float(b) for b in res.bers],
+                     "snrs_db": [35.0, 13.0], "errs_35db": clean,
+                     "waterfall_13db_errs": wf, "bits_a_step": nb,
+                     "cfo031_648_qpsk_smooth_30db_errs": cfo_648,
+                     "cfo02_1944_16qam_ls_35db_errs": cfo_1944,
+                     "cfo0_corrected_1944_16qam_ls_35db_errs": cfo_1944_zero,
+                     "launches": launches["qc_bp_resident"]["G"]}
+    print(f"Path G OFDM 802.11n LDPC 1944 16-QAM 4-tap, F=512: perfect-CSI "
+          f"BER {out['path_g']['bers_perfect']} at 35/13 dB; errors at 35 dB "
+          f"{clean}; at 13 dB LS {wf['ls']}, smoothed {wf['smooth']} of "
+          f"{nb}; CFO 0.31 (648 QPSK smooth, 30 dB) corrected/not "
+          f"{cfo_648[True]}/{cfo_648[False]} of {512 * 324}; CFO 0.2 (1944 "
+          f"16-QAM LS, 35 dB) corrected/not {cfo_1944[True]}/"
+          f"{cfo_1944[False]}, no CFO but corrected {cfo_1944_zero}; "
+          f"qc_bp_resident launches {launches['qc_bp_resident']['G']}",
+          flush=True)
+    if any(clean.values()):
+        fail(f"Path G: errors at 35 dB {clean}")
+    if not wf["smooth"] <= wf["ls"] or wf["ls"] == 0:
+        fail(f"Path G: smoothed CSI {wf['smooth']} vs LS {wf['ls']} errors")
+    # the CP estimator reads the channel's inter-symbol interference in
+    # the first n_taps - 1 samples of each CP as offset, so even a zero
+    # CFO leaves a residual whose phase drift grows over the frame: the
+    # JAX package's link shows the same floor (its own 1944 16-QAM link
+    # errs at 35 dB); the check is that correction removes almost all of
+    # the offset's damage
+    if not cfo_648[True] * 100 < cfo_648[False]:
+        fail(f"Path G: CFO sync at 648 QPSK {cfo_648}")
+    if not cfo_1944[True] * 10 < cfo_1944[False]:
+        fail(f"Path G: CFO sync at 1944 16-QAM {cfo_1944}")
+    if launches["qc_bp_resident"]["G"] == 0:
+        fail("Path G never launched qc_bp_resident")
+    for csi, seed in (("perfect", 47), ("ls", 48)):
+        lk = g_links[csi]
+        bits, noise, h = link_draws(torch, lk, 512, seed)
+        k4_on(torch, q1944, lk.receive(bits, noise,
+                                       float(lk.noise_std_fn(13.0)), h),
+              k4_tally)
+    out["path_g"]["timing"] = time_link(torch, g_links["ls"], 512, 13.0, 49,
+                                        "Path G OFDM-LDPC (LS CSI)")
+    require_kernels(out["path_g"]["timing"], "Path G",
+                    ["qc_bp_resident_kernel"])
+    print(f"K4 on Paths E and G's own LLRs: {k4_tally.mismatches} "
+          f"mismatches in {k4_tally.cases} cases, {k4_tally.compared} "
+          f"decisions", flush=True)
+    out["k4_path_parity"] = {"mismatches": k4_tally.mismatches,
+                             "cases": k4_tally.cases,
+                             "compared": k4_tally.compared}
+    report.update(out)
+    return launches
+
+
+def auto_past_the_limits(torch, report):
+    """'auto' decodes a K=12 (2048-state) convolutional code and a
+    32-state turbo code on the card, by the general and torch routes, as
+    the plain routes do; 'cuda' raises with the kernel's limit."""
+    from commpy_tpu_torch.ops.trellis import Trellis
+    from commpy_tpu_torch.ops.turbo import (turbo_decode_device,
+                                            turbo_encode_device)
+    from commpy_tpu_torch.ops.viterbi import viterbi_decode_device
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(50)
+    k12 = Trellis(np.array([11]), np.array([[0o4335, 0o5723]]))
+    x = torch.as_tensor((rng.randn(64, 2 * 200) * 2).astype(np.float32),
+                        device=dev)
+    a = viterbi_decode_device(x, k12, 60, "soft", L=200)
+    b = viterbi_decode_device(x, k12, 60, "soft", L=200, backend="torch")
+    rsc32 = Trellis(np.array([5]), np.array([[1, 0o67]]), 0o45, "rsc")
+    p = rng.permutation(512)
+    msg = torch.as_tensor(rng.randint(0, 2, (64, 512)).astype(np.int8),
+                          device=dev)
+    y = [2.0 * s.to(torch.float32) - 1.0 + torch.as_tensor(
+        rng.randn(64, 512).astype(np.float32), device=dev) * 0.8
+         for s in turbo_encode_device(msg, rsc32, rsc32, p)]
+    ta = turbo_decode_device(*y, rsc32, 0.64, 4, p)
+    tb = turbo_decode_device(*y, rsc32, 0.64, 4, p, backend="torch")
+    raised = []
+    for call in (lambda: viterbi_decode_device(x, k12, 60, "soft", L=200,
+                                               backend="cuda"),
+                 lambda: turbo_decode_device(*y, rsc32, 0.64, 4, p,
+                                             backend="cuda")):
+        try:
+            call()
+        except NotImplementedError as e:
+            raised.append(str(e)[:80])
+    out = {"k12_auto_vs_plain_bits_differ": int((a != b).sum()),
+           "rsc32_auto_vs_torch_bits_differ": int((ta != tb).sum()),
+           "rsc32_ber": float((ta != msg).float().mean()),
+           "cuda_raised": raised}
+    print(f"'auto' past the kernels' limits: {out}", flush=True)
+    if out["k12_auto_vs_plain_bits_differ"] or \
+            out["rsc32_auto_vs_torch_bits_differ"] or len(raised) != 2:
+        fail(f"'auto' routing past the kernels' limits: {out}")
+    report["auto_past_limits"] = out
+
+
 def main():
     import torch
 
@@ -1520,6 +1898,11 @@ def main():
         "turbo_l512_maxlog_0db_ber": {str(k): v for k, v in maxlog.items()}})
 
     lap("path_c_and_physics")
+    # ---- Paths D-G: MIMO detection and OFDM -----------------------------
+    path_launches = mimo_ofdm_paths(torch, report, k7)
+    auto_past_the_limits(torch, report)
+
+    lap("paths_d_to_g")
     # ---- timing -------------------------------------------------------
     timings = {}
     tb_inputs = {}
@@ -1880,6 +2263,8 @@ def main():
                 bn[f"{key}_plain_ms"], "bench_bound_ms": bb_ms,
         })
         kernels[-1].update({
+            "path_launches": {"MCS-4": main_launches[name],
+                              **path_launches[name]},
             "redesigned": True, "device_ms": m4[f"{key}_device_ms"],
             "bench_device_ms": bn[f"{key}_device_ms"], "ms_note": MS_NOTE,
             "plan": m4[f"{key}_plan"]})
@@ -1937,6 +2322,8 @@ def main():
         })
         if name == "qc_bp_resident":
             kernels[-1].update({
+                "path_launches": {"A": launches_a,
+                                  **path_launches["qc_bp_resident"]},
                 "redesigned": True, "plan": t["plan"],
                 "sweeps_device_ms": t["sweeps_device_ms"],
                 "second_plan": other["plan"],
@@ -2033,6 +2420,17 @@ def main():
         "turbo_link_info_bits_per_s": turbo_bps,
         "turbo_link_config": "rate 1/3, L=6144, RandInterlv(6144, 0), NII "
                              "(128, 0), F=256, Eb/N0 1.0 dB",
+        "mimo_ofdm_link_info_bits_per_s": {
+            k: report[k]["timing"]["info_bits_per_s"]
+            for k in ("path_d", "path_e", "path_f", "path_g")},
+        "mimo_ofdm_link_configs": {
+            "path_d": "K-best(16) 4x4 16-QAM uncoded, F=2048, 16.02 dB",
+            "path_e": "best-first(32) 4x4 16-QAM + WiMAX LDPC (1440, 720) "
+                      "MSA-15, F=512, 18 dB",
+            "path_f": "OFDM 2x2 16-QAM K-best(8) + K=7 soft Viterbi, "
+                      "F=2048, 14 dB",
+            "path_g": "OFDM 802.11n LDPC (1944, 1/2) 16-QAM, 4-tap "
+                      "Rayleigh, LS CSI, F=512, 13 dB"},
         "card": card, "seconds": report["seconds"], "phase_s": phase_s}),
         flush=True)
     os.makedirs("build", exist_ok=True)

@@ -95,10 +95,15 @@ def bcjr_plan(T: int, S: int, R: int, sms: int = H100_SMS,
     ``hist`` ("shared" or "global") fixes the choice instead, for
     measuring it; "shared" raises ValueError when it does not fit.
 
+    Raises ValueError past :data:`MAX_STATES` states.
+
     Returns ``{"hist": "shared" | "global", "smem_bytes", "blocks",
     "threads", "blocks_per_sm"}`` (threads a block; ``blocks_per_sm`` as
     far as threads and shared memory allow).
     """
+    if S > MAX_STATES:
+        raise ValueError(f"the CUDA BCJR kernel takes S <= {MAX_STATES} "
+                         f"states (got {S})")
     shared = 4 * T * S * LANES
     blocks = -(-R // LANES)
     threads = 2 * S * LANES

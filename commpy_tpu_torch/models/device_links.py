@@ -1,13 +1,13 @@
 """Batched end-to-end link pipelines.
 
-Counterpart of the conv-coded part of ``commpy_tpu/models/device_links.py``.
-``make_conv_awgn_link`` returns a :class:`DeviceLink` whose
-``link_step(generator, n_frames, noise_std) -> bit_errors`` simulates a
-batch of frames on one device: random bits -> FEC encode -> map ->
-channel -> demap -> decode -> XOR count.  The random draws and the
-deterministic chain are separate: ``transceive(bits, noise, noise_std)``
-takes the bits and the unit complex noise as inputs, so tests can feed the
-JAX package and the port the same draws; it is ``decode(receive(...))``,
+Counterpart of ``commpy_tpu/models/device_links.py``.  Each factory
+returns a :class:`DeviceLink` whose ``link_step(generator, n_frames,
+noise_std) -> bit_errors`` simulates a batch of frames on one device:
+random bits -> FEC encode -> map -> channel -> demap / detect -> decode ->
+XOR count.  The random draws and the deterministic chain are separate:
+``transceive(bits, noise, noise_std, *channel)`` takes the bits, the unit
+complex noise and the channel draws as inputs, so tests can feed the JAX
+package and the port the same draws; it is ``decode(receive(...))``,
 where ``receive`` ends with the decoder's input.  Each stage runs under a
 ``torch.profiler.record_function`` span named ``link.<stage>``, so a
 profile assigns device time by stage.
@@ -17,7 +17,7 @@ Conventions follow the reference link stack: SNR_dB = (Eb/N0)_dB +
 soft Viterbi consumes LLRs with positive => bit 1; LDPC BP consumes
 ``llr = -demodulate_soft(...)``, positive => bit 0 (signbit decisions).
 The turbo link is real BPSK over real AWGN, ``tx + noise * noise_std``.
-The MIMO and OFDM links are not ported yet.
+The MIMO detectors' LLRs follow the reference's sign (positive => bit 0).
 """
 from __future__ import annotations
 
@@ -29,18 +29,25 @@ import torch
 from torch.profiler import record_function
 
 from ..ops import modem as M
-from ..ops.channel import snr_to_noise_std
+from ..ops import ofdm as OFDM
+from ..ops.channel import crandn, snr_to_noise_std
 from ..ops.convcode import depuncture_device, encode_scan, puncture_mask
+from ..ops.impairments import add_frequency_offset
 from ..ops.ldpc import build_matrix, ldpc_bp_decode_device, ldpc_encode_device
+from ..ops.mimo import best_first_device, kbest_device
 from ..ops.qcldpc import qc_bp_decode_device, qc_encoder
 from ..ops.scramble import descramble, scramble
+from ..ops.sync import cfo_correct, cfo_estimate_cp
 from ..ops.trellis import Trellis
 from ..ops.turbo import turbo_decode_device, turbo_encode_device
 from ..ops.viterbi import viterbi_decode_device
 from ..utils.device import device_constant, on_device, resolve_device
+from ..utils.linalg import small_matmul
 
 __all__ = ["DeviceLink", "make_conv_awgn_link", "make_turbo_awgn_link",
-           "make_qcldpc_awgn_link", "make_ldpc_rayleigh_link"]
+           "make_qcldpc_awgn_link", "make_ofdm_qcldpc_link",
+           "make_ldpc_rayleigh_link", "make_kbest_mimo_link",
+           "make_bestfirst_ldpc_mimo_link", "make_ofdm_mimo_conv_link"]
 
 
 @dataclass
@@ -51,14 +58,37 @@ class DeviceLink:
         scalar tensor on ``device``); draws its bits and noise from the
         ``torch.Generator`` it is given.
     transceive : ``(bits [F, frame_bits] int8, noise [F, n_symbols]
-        complex64, noise_std) -> decoded bits [F, frame_bits] int8``; the
-        deterministic part of ``link_step`` (a fading link also takes its
-        channel gains ``h [F, n_symbols]`` complex64).  The turbo link's
-        noise is real: ``[F, frame_bits, 3]`` float32 (systematic and two
-        parity streams), and ``n_symbols`` counts its values.
+        complex64, noise_std, *channel) -> decoded bits [F, frame_bits]
+        int8``; the deterministic part of ``link_step``.  ``noise`` holds
+        unit complex normals, scaled by ``noise_std * 0.5`` inside.  The
+        turbo link's noise is real: ``[F, frame_bits, 3]`` float32
+        (systematic and two parity streams), and ``n_symbols`` counts its
+        values.  The channel draws, a fourth argument, by link:
+
+        ======================  ==========================  ================
+        link                    noise                       channel
+        ======================  ==========================  ================
+        LDPC Rayleigh           ``[F, n_symbols]``          ``h [F,
+                                                            n_symbols]``
+        K-best / best-first     ``[F, n_vec, nr]``          ``h [F, n_vec,
+        MIMO                                                nr, nt]``
+        OFDM-MIMO conv          time domain ``[F, nr, T]``  ``h [F, nr,
+                                                            nt]``
+        OFDM-LDPC               time domain ``[F, T]``      taps ``g [F,
+                                                            n_taps]``
+        ======================  ==========================  ================
+
+        All complex64, each the channel itself (the link's ``link_step``
+        draws unit normals and scales them); the OFDM-LDPC link's CFO is a
+        constant of the link.  For the LDPC, MIMO and OFDM links,
+        ``extras["noise_shape"]`` and ``extras["channel_shape"]`` (None
+        without a channel) give the shapes after the frame axis and
+        ``extras["channel_scale"]`` the scale ``link_step`` gives its unit
+        channel draw.
     receive : same arguments as ``transceive``; returns the decoder's
         input (depunctured LLRs, hard bits or reals) ``[F, n_coded]``; the
-        turbo link's is the received reals ``[F, frame_bits, 3]``.
+        turbo link's is the received reals ``[F, frame_bits, 3]``; the
+        uncoded K-best link's the detected symbols ``[F, n_vec * nt]``.
     decode : ``receive``'s output -> decoded bits ``[F, frame_bits]``; the
         turbo link's also takes ``noise_std``.
     """
@@ -79,14 +109,6 @@ def _gen_bits(generator: torch.Generator, n_frames: int, n_bits: int,
     """Uniform random bits ``[F, n_bits]`` int8."""
     return torch.randint(0, 2, (n_frames, n_bits), generator=generator,
                          device=device, dtype=torch.int8)
-
-
-def _frame_crandn(generator: torch.Generator, n_frames: int, n: int,
-                  device) -> torch.Tensor:
-    """Complex normals ``[F, n]`` with unit-variance real and imaginary
-    parts (``re + 1j*im``, as the JAX package draws them)."""
-    z = torch.randn((2, n_frames, n), generator=generator, device=device)
-    return torch.complex(z[0], z[1])
 
 
 def make_conv_awgn_link(
@@ -170,7 +192,7 @@ def make_conv_awgn_link(
 
     def link_step(generator, n_frames, noise_std):
         bits = _gen_bits(generator, n_frames, frame_bits, dev)
-        noise = _frame_crandn(generator, n_frames, n_sym, dev)
+        noise = crandn(generator, (n_frames, n_sym), dev)
         dec = transceive(bits, noise, noise_std)
         with record_function("link.count_errors"):
             return torch.sum(torch.bitwise_xor(dec, bits), dtype=torch.int32)
@@ -252,28 +274,37 @@ def make_turbo_awgn_link(
                       decode)
 
 
-def _ldpc_link_parts(name, dev, receive, decode, frame_bits, n_sym, rate,
-                     Es, extras, fading=False):
-    """The ``DeviceLink`` of an LDPC-coded link from its two stages."""
+_SQRT_HALF = float(np.sqrt(np.float32(0.5)))
+
+
+def _link_parts(name, dev, receive, decode, frame_bits, noise_std_fn,
+                extras, noise_shape, channel_shape=None,
+                channel_scale=_SQRT_HALF):
+    """The ``DeviceLink`` of a link from its two stages.
+
+    ``link_step`` draws the bits, unit complex noise ``[F, *noise_shape]``
+    and, for a link with a channel, ``crandn([F, *channel_shape]) *
+    channel_scale``, and counts the errors of ``transceive`` on them.
+    """
 
     def transceive(bits, noise, noise_std, *h):
         return decode(receive(bits, noise, noise_std, *h))
 
     def link_step(generator, n_frames, noise_std):
         bits = _gen_bits(generator, n_frames, frame_bits, dev)
-        noise = _frame_crandn(generator, n_frames, n_sym, dev)
-        h = ((_frame_crandn(generator, n_frames, n_sym, dev)
-              * float(np.sqrt(np.float32(0.5))),) if fading else ())
+        noise = crandn(generator, (n_frames,) + noise_shape, dev)
+        h = (() if channel_shape is None else
+             (crandn(generator, (n_frames,) + channel_shape, dev)
+              * channel_scale,))
         dec = transceive(bits, noise, noise_std, *h)
         with record_function("link.count_errors"):
             return torch.sum(torch.bitwise_xor(dec, bits), dtype=torch.int32)
 
-    def noise_std_fn(snr_db):
-        return snr_to_noise_std(snr_db, code_rate=rate, Es=Es)
-
     return DeviceLink(link_step, frame_bits, noise_std_fn, name,
-                      dict(extras, rate=rate, Es=Es), transceive, n_sym,
-                      receive, decode)
+                      dict(extras, noise_shape=noise_shape,
+                           channel_shape=channel_shape,
+                           channel_scale=channel_scale),
+                      transceive, int(np.prod(noise_shape)), receive, decode)
 
 
 def _constellation(modulation_m, use_psk):
@@ -328,8 +359,11 @@ def make_qcldpc_awgn_link(
                                          msa_offset=msa_offset, device=dev)
             return dec[..., :frame_bits]
 
-    return _ldpc_link_parts(name, dev, receive, decode, frame_bits,
-                            n_v // bps, frame_bits / n_v, Es, {"n": n_v})
+    rate = frame_bits / n_v
+    return _link_parts(
+        name, dev, receive, decode, frame_bits,
+        lambda snr_db: snr_to_noise_std(snr_db, code_rate=rate, Es=Es),
+        {"n": n_v, "rate": rate, "Es": Es}, (n_v // bps,))
 
 
 def make_ldpc_rayleigh_link(
@@ -389,6 +423,351 @@ def make_ldpc_rayleigh_link(
                                            n_iterations, device=dev)
             return dec[..., :frame_bits]
 
-    return _ldpc_link_parts(name, dev, receive, decode, frame_bits,
-                            n_v // bps, frame_bits / n_v, Es, {"n": n_v},
-                            fading=fading)
+    rate = frame_bits / n_v
+    return _link_parts(
+        name, dev, receive, decode, frame_bits,
+        lambda snr_db: snr_to_noise_std(snr_db, code_rate=rate, Es=Es),
+        {"n": n_v, "rate": rate, "Es": Es}, (n_v // bps,),
+        (n_v // bps,) if fading else None)
+
+
+def _noisy(signal, noise, noise_std):
+    """``signal + noise * (noise_std * 0.5)`` in float32."""
+    ns = np.float32(noise_std)
+    return signal + on_device(noise, signal.device) * float(
+        ns * np.float32(0.5))
+
+
+def _mimo_channel(x, h, noise, noise_std):
+    """``y[f, v] = h[f, v] @ x[f, v] + noise`` (float32 sums over the
+    transmit antennas)."""
+    h = on_device(h, x.device)
+    return _noisy(small_matmul(h, x[..., None])[..., 0], noise, noise_std), h
+
+
+def make_kbest_mimo_link(
+    *,
+    nb_tx: int = 4,
+    nb_rx: int = 4,
+    modulation_m: int = 16,
+    K: int = 16,
+    vectors_per_frame: int = 32,
+    name: str = "kbest-mimo",
+    device="cuda",
+) -> DeviceLink:
+    """Uncoded K-best detection over uncorrelated Rayleigh MIMO (the
+    reference's test_links.py:55-58 configuration): QAM vectors of
+    ``nb_tx`` symbols through ``h [nb_rx, nb_tx]`` (a fresh channel a
+    vector, entries complex normal of variance 1), hard K-best
+    detection, hard demapping."""
+    dev = resolve_device(device)
+    const, Es, bps = _constellation(modulation_m, False)
+    nv = vectors_per_frame
+    frame_bits = nv * nb_tx * bps
+
+    def receive(bits, noise, noise_std, h):
+        F = bits.shape[0]
+        with record_function("link.modulate_channel"):
+            x = M.modulate(bits, const, bps, device=dev).reshape(F, nv, nb_tx)
+            y, h = _mimo_channel(x, h, noise, noise_std)
+        with record_function("link.detect"):
+            xh = kbest_device(y.reshape(-1, nb_rx),
+                              h.reshape(-1, nb_rx, nb_tx), const, K,
+                              device=dev)
+            return xh.reshape(F, -1)
+
+    def decode(xh):
+        with record_function("link.demodulate"):
+            return M.demodulate_hard(xh, const, bps)
+
+    def noise_std_fn(snr_db):
+        return snr_to_noise_std(snr_db, code_rate=1.0, Es=Es, nb_tx=nb_tx)
+
+    return _link_parts(name, dev, receive, decode, frame_bits, noise_std_fn,
+                       {"Es": Es, "bps": bps}, (nv, nb_rx),
+                       (nv, nb_rx, nb_tx))
+
+
+def make_bestfirst_ldpc_mimo_link(
+    *,
+    ldpc_params: dict,
+    nb_tx: int = 4,
+    nb_rx: int = 4,
+    modulation_m: int = 16,
+    beam=32,
+    llr_max: float = 500.0,
+    algorithm: str = "MSA",
+    n_iterations: int = 15,
+    detector: str = "bestfirst",
+    name: str = "bestfirst-ldpc-mimo",
+    device="cuda",
+) -> DeviceLink:
+    """LDPC-coded MIMO link with batched soft detection (the reference's
+    tier-3 acceptance model, test_links.py:60-86): WiMAX LDPC(1440,720)
+    encode -> 16-QAM -> 4x4 uncorrelated Rayleigh -> soft detector LLRs ->
+    MSA-15 BP decode.  One frame is one codeword.
+
+    ``detector='bestfirst'`` uses
+    :func:`~commpy_tpu_torch.ops.mimo.best_first_device` (unscaled metric
+    differences, positive <=> bit 0: MSA decisions do not depend on the
+    missing 1/(2 sigma^2)); ``detector='kbest'`` uses ``kbest_device``'s
+    max-log soft output with K = ``beam`` (its last entry for a tuple).
+    Decoding is :func:`~commpy_tpu_torch.ops.ldpc.ldpc_bp_decode_device`,
+    which lifts WiMAX to its QC form: K4 on the card.
+    """
+    if detector not in ("bestfirst", "kbest"):
+        raise ValueError(f"unknown detector {detector!r}")
+    dev = resolve_device(device)
+    if ldpc_params.get("generator_matrix") is None:
+        build_matrix(ldpc_params)
+    G = np.asarray(ldpc_params["generator_matrix"].todense()) % 2
+    G_dev = torch.as_tensor(G.astype(np.int8), device=dev)
+    n_v = ldpc_params["n_vnodes"]
+    frame_bits = n_v - ldpc_params["n_cnodes"]
+    const, Es, bps = _constellation(modulation_m, False)
+    rate = frame_bits / n_v
+    n_sym = n_v // bps
+    if n_v % bps or n_sym % nb_tx:
+        raise ValueError(f"codeword length {n_v} must fill whole {bps}-bit "
+                         f"symbols and whole {nb_tx}-symbol vectors")
+    n_vec = n_sym // nb_tx
+    K = int(beam) if np.ndim(beam) == 0 else int(beam[-1])
+
+    def receive(bits, noise, noise_std, h):
+        F = bits.shape[0]
+        with record_function("link.encode"):
+            coded = ldpc_encode_device(bits, G_dev, device=dev)  # [F, n_v]
+        with record_function("link.modulate_channel"):
+            x = M.modulate(coded, const, bps, device=dev).reshape(
+                F, n_vec, nb_tx)
+            y, h = _mimo_channel(x, h, noise, noise_std)
+        with record_function("link.detect"):
+            yv, hv = y.reshape(-1, nb_rx), h.reshape(-1, nb_rx, nb_tx)
+            if detector == "kbest":
+                ns = np.float32(noise_std)
+                llrs = kbest_device(yv, hv, const, K, ns * ns, "soft", bps,
+                                    device=dev)
+            else:
+                llrs = best_first_device(yv, hv, const, beam=beam,
+                                         llr_max=llr_max,
+                                         bits_per_symbol=bps, device=dev)
+            return llrs.reshape(F, n_v)  # positive <=> bit 0
+
+    def decode(llrs):
+        with record_function("link.ldpc_decode"):
+            dec, _ = ldpc_bp_decode_device(llrs, ldpc_params, algorithm,
+                                           n_iterations, device=dev)
+            return dec[..., :frame_bits]
+
+    def noise_std_fn(snr_db):
+        return snr_to_noise_std(snr_db, code_rate=rate, Es=Es, nb_tx=nb_tx)
+
+    return _link_parts(name, dev, receive, decode, frame_bits, noise_std_fn,
+                       {"rate": rate, "Es": Es, "bps": bps, "n": n_v,
+                        "detector": detector}, (n_vec, nb_rx),
+                       (n_vec, nb_rx, nb_tx))
+
+
+def make_ofdm_mimo_conv_link(
+    *,
+    trellis: Trellis,
+    modulation_m: int = 16,
+    nb_tx: int = 2,
+    nb_rx: int = 2,
+    K: int = 8,
+    nfft: int = 64,
+    nsc: int = 48,
+    cp_length: int = 16,
+    n_ofdm_symbols: int = 4,
+    name: str = "ofdm-mimo-conv",
+    device="cuda",
+) -> DeviceLink:
+    """802.11ac-style link (BASELINE configuration 5): conv code -> QAM ->
+    OFDM -> 2x2 flat MIMO -> K-best soft detection -> soft Viterbi.
+
+    Block fading: one channel matrix a frame, shared by all subcarriers.
+    The FFT pair is ifft (1/N) at the transmitter and fft at the receiver,
+    so the per-subcarrier noise variance is ``nfft`` times the time
+    domain's; ``noise_std_fn`` calibrates the per-subcarrier SNR.
+    """
+    dev = resolve_device(device)
+    const, Es, bps = _constellation(modulation_m, False)
+    k, n = trellis.k, trellis.n
+    rate = k / n
+    n_sym = nsc * n_ofdm_symbols * nb_tx  # QAM symbols a frame
+    n_coded = n_sym * bps
+    frame_bits = n_coded * k // n
+    tb_depth = min(5 * trellis.total_memory, frame_bits)
+    n_vec = nsc * n_ofdm_symbols
+    T = n_ofdm_symbols * (nfft + cp_length)
+
+    def receive(bits, noise, noise_std, h):
+        F = bits.shape[0]
+        with record_function("link.encode"):
+            coded, _ = encode_scan(bits, trellis, device=dev)
+        with record_function("link.modulate_channel"):
+            symbols = M.modulate(coded, const, bps, device=dev)
+            grids = symbols.reshape(F, nb_tx, n_ofdm_symbols, nsc).movedim(
+                -1, -2)  # [F, nt, nsc, n_ofdm]
+            tx_time = OFDM.ofdm_tx(grids, nfft, nsc, cp_length, dev)
+            h = on_device(h, dev)
+            rx_time = _noisy(small_matmul(h, tx_time), noise, noise_std)
+        with record_function("link.detect"):
+            rx_grids = OFDM.ofdm_rx(rx_time, nfft, nsc, cp_length, dev)
+            rx_vec = rx_grids.movedim(1, -1)  # [F, nsc, n_ofdm, nr]
+            h_rep = h[:, None].expand(F, n_vec, nb_rx, nb_tx)
+            ns = np.float32(noise_std)
+            noise_var = ns * ns * np.float32(nfft)
+            llrs = kbest_device(rx_vec.reshape(-1, nb_rx),
+                                h_rep.reshape(-1, nb_rx, nb_tx), const, K,
+                                noise_var, "soft", bps, device=dev)
+            # undo the tx layout [nb_tx, n_ofdm, nsc]; the detector's
+            # positive => bit 0 becomes the soft Viterbi's positive => bit 1
+            llrs = llrs.reshape(F, nsc, n_ofdm_symbols, nb_tx, bps)
+            return -llrs.permute(0, 3, 2, 1, 4).reshape(F, -1)
+
+    def decode(llrs):
+        with record_function("link.viterbi"):
+            return viterbi_decode_device(llrs, trellis, tb_depth, "soft",
+                                         L=frame_bits, device=dev)
+
+    def noise_std_fn(snr_db):
+        return snr_to_noise_std(snr_db, code_rate=rate, Es=Es,
+                                nb_tx=nb_tx) / np.sqrt(nfft)
+
+    return _link_parts(name, dev, receive, decode, frame_bits, noise_std_fn,
+                       {"rate": rate, "Es": Es, "bps": bps,
+                        "trellis": trellis, "decoding_type": "soft"},
+                       (nb_rx, T), (nb_rx, nb_tx))
+
+
+def make_ofdm_qcldpc_link(
+    *,
+    qc_params: dict,
+    modulation_m: int = 4,
+    nfft: int = 64,
+    nsc: int = 54,
+    cp_length: int = 16,
+    n_taps: int = 4,
+    algorithm: str = "MSA",
+    n_iterations: int = 15,
+    msa_scale: float = 1.0,
+    csi: str = "perfect",
+    cfo: float = 0.0,
+    cfo_correction: bool = False,
+    name: str = "ofdm-qcldpc",
+    device="cuda",
+) -> DeviceLink:
+    """802.11n-style OFDM PHY with QC-LDPC coding over a multipath channel.
+
+    One frame is one QC codeword spread over an OFDM grid; the channel is
+    an ``n_taps``-tap Rayleigh delay line (time-domain convolution, the
+    CP absorbs the delay spread), so subcarriers fade selectively.  Per
+    subcarrier equalization with the per-subcarrier noise variance feeds
+    the exact-LLR demapper, then
+    :func:`~commpy_tpu_torch.ops.qcldpc.qc_bp_decode_device` (K4 on the
+    card for the 802.11n codes).
+
+    ``csi``: "perfect" uses the true per-subcarrier response; "ls"
+    prepends one known BPSK pilot OFDM symbol and least-squares-estimates
+    ``H = rx_pilot / pilot``; "smooth" also projects the LS estimate onto
+    the ``n_taps`` delay subspace
+    (:func:`~commpy_tpu_torch.ops.ofdm.delay_subspace_matrix`).
+
+    ``cfo`` applies a normalized carrier frequency offset (subcarrier
+    spacings) to the received waveform; ``cfo_correction=True`` runs the
+    CP-correlation estimator and derotates before OFDM demodulation.
+    """
+    dev = resolve_device(device)
+    n_v = qc_params["n_vnodes"]
+    frame_bits = qc_params["k_bits"]
+    const, Es, bps = _constellation(modulation_m, False)
+    rate = frame_bits / n_v
+    n_sym = n_v // bps
+    if n_v % bps or n_sym % nsc:
+        raise ValueError(
+            f"codeword ({n_v} bits, {n_sym} symbols) must fill whole "
+            f"{bps}-bit symbols and whole {nsc}-subcarrier OFDM symbols")
+    n_ofdm = n_sym // nsc
+    if n_taps > cp_length:
+        raise ValueError("delay spread must fit inside the cyclic prefix")
+    if csi not in ("perfect", "ls", "smooth"):
+        raise ValueError('csi must be "perfect", "ls" or "smooth"')
+    # DFT vectors of the mapped bins: H = W @ g  ([nsc, n_taps])
+    bins = OFDM.subcarrier_bins(nfft, nsc)
+    W = np.exp(-2j * np.pi * bins[:, None] * np.arange(n_taps)[None, :]
+               / nfft).astype(np.complex64)
+    smooth_t = (np.ascontiguousarray(
+        OFDM.delay_subspace_matrix(nfft, nsc, n_taps).T)
+        if csi == "smooth" else None)
+    # BPSK pilot with the average data symbol energy
+    pilot = (np.sqrt(Es) * (1.0 - 2.0 * (np.arange(nsc) % 2))).astype(
+        np.complex64)
+    n_blocks = n_ofdm + (csi != "perfect")
+    T = n_blocks * (nfft + cp_length)
+    encode = qc_encoder(qc_params, dev)
+
+    def receive(bits, noise, noise_std, g):
+        F = bits.shape[0]
+        with record_function("link.encode"):
+            coded = encode(on_device(bits, dev))  # [F, n_v]
+        with record_function("link.modulate_channel"):
+            symbols = M.modulate(coded, const, bps, device=dev)
+            grids = symbols.reshape(F, n_ofdm, nsc).movedim(-1, -2)
+            if csi != "perfect":
+                pgrid = device_constant(pilot, dev)[None, :, None].expand(
+                    F, nsc, 1)
+                grids = torch.cat([pgrid, grids], dim=-1)
+            tx = OFDM.ofdm_tx(grids, nfft, nsc, cp_length, dev)  # [F, T]
+            g = on_device(g, dev)
+            rx = torch.zeros_like(tx)
+            for tap in range(n_taps):  # y[t] = sum_l g_l x[t-l]
+                shifted = tx if tap == 0 else torch.nn.functional.pad(
+                    tx, (tap, 0))[:, :tx.shape[1]]
+                rx = rx + g[:, tap:tap + 1] * shifted
+            if cfo:
+                rx = add_frequency_offset(rx, float(nfft), cfo, dev)
+            rx = _noisy(rx, noise, noise_std)
+        with record_function("link.sync_equalize"):
+            if cfo_correction:
+                eps = cfo_estimate_cp(rx, nfft, cp_length, n_blocks, dev)
+                rx = cfo_correct(rx, eps, nfft, device=dev)
+            rx_grids = OFDM.ofdm_rx(rx, nfft, nsc, cp_length, dev)
+            if csi != "perfect":
+                H = rx_grids[:, :, 0] / device_constant(pilot, dev)
+                if smooth_t is not None:
+                    H = small_matmul(H[:, None, :], device_constant(
+                        smooth_t, dev))[:, 0, :]
+                rx_grids = rx_grids[:, :, 1:]
+            else:
+                H = small_matmul(g[:, None, :], device_constant(
+                    np.ascontiguousarray(W.T), dev))[:, 0, :]  # [F, nsc]
+            z = rx_grids / H[:, :, None]
+            ns = np.float32(noise_std)
+            noise_var = float(ns * ns * np.float32(nfft))
+            nv_eff = noise_var / torch.clamp_min(
+                torch.abs(H[:, :, None]) ** 2, 1e-12)
+            z = z.movedim(-1, -2).reshape(F, n_sym)
+            nv_eff = nv_eff.expand(F, nsc, n_ofdm).movedim(-1, -2).reshape(
+                F, n_sym)
+        with record_function("link.demodulate"):
+            return -M.demodulate_soft(z, const, bps, nv_eff)
+
+    def decode(llr):
+        with record_function("link.ldpc_decode"):
+            dec, _ = qc_bp_decode_device(llr, qc_params, algorithm,
+                                         n_iterations, msa_scale=msa_scale,
+                                         device=dev)
+            return dec[..., :frame_bits]
+
+    def noise_std_fn(snr_db):
+        # per-subcarrier SNR (reference channels.py:74); the time-domain
+        # std is that over sqrt(nfft) (the FFT's gain); the unit-energy
+        # delay line keeps the average
+        return snr_to_noise_std(snr_db, code_rate=rate, Es=Es) / np.sqrt(nfft)
+
+    return _link_parts(name, dev, receive, decode, frame_bits, noise_std_fn,
+                       {"rate": rate, "Es": Es, "bps": bps, "n": n_v,
+                        "n_ofdm_symbols": n_ofdm, "csi": csi, "cfo": cfo},
+                       (T,), (n_taps,),
+                       float(np.sqrt(np.float32(0.5 / n_taps))))

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels.bcjr import _w_tables, bcjr_appdiff
+from ..kernels.bcjr import MAX_STATES, _w_tables, bcjr_appdiff, bcjr_plan
 from ..utils.bits import np_unpack_bits
 from ..utils.device import device_constant, on_device
 from .convcode import conv_encode, encode_scan
@@ -663,18 +663,48 @@ def _turbo_iterations_cuda(sys_symbols, non_sys_symbols_1, non_sys_symbols_2,
 
 def _cuda_bcjr_fits(trellis: Trellis) -> bool:
     """Whether K3 takes this trellis: binary input, a power-of-two number
-    of states and bijective per-input state maps.  (The history goes to
-    device memory when shared memory cannot hold it, so there is no size
-    limit to check; past ``MAX_STATES`` the CUDA kernel raises rather than
-    route away.)"""
+    of states that ``bcjr_plan`` accepts (at most ``MAX_STATES``) and
+    bijective per-input state maps.  (The history goes to device memory
+    when shared memory cannot hold it, so the frame length sets no
+    limit.)"""
     S = trellis.number_states
     if trellis.number_inputs != 2 or (S & (S - 1)):
         return False
     try:
+        bcjr_plan(1, S, 1)
         _w_tables(trellis)
-    except NotImplementedError:
+    except (ValueError, NotImplementedError):
         return False
     return True
+
+
+def turbo_route(trellis: Trellis, backend: str, device_type: str,
+                parallel: bool = False) -> str:
+    """The decoder's route for ``trellis`` on a tensor of ``device_type``:
+    ``'kernel'`` (K3 on ``'cuda'``, its plain version on the CPU) or
+    ``'torch'`` (the XLA-order cores).
+
+    ``backend='auto'`` takes K3 for every trellis it takes
+    (:func:`_cuda_bcjr_fits`) unless ``parallel``; ``'cuda'`` raises
+    unless the tensor is on the card and K3 takes the trellis.
+    """
+    if backend not in _BACKENDS:
+        raise ValueError(f"backend must be one of {_BACKENDS}, got "
+                         f"{backend!r}")
+    fits = _cuda_bcjr_fits(trellis)
+    if backend == "cuda":
+        if device_type != "cuda":
+            raise ValueError("backend='cuda' needs a CUDA tensor, got one on "
+                             f"{device_type}")
+        if not fits:
+            raise NotImplementedError(
+                "backend='cuda' takes binary trellises with a power-of-two "
+                f"number of states, at most {MAX_STATES}, and bijective "
+                f"per-input state maps (got {trellis.number_states} states, "
+                f"{trellis.number_inputs} inputs); use backend='auto'")
+        return "kernel"
+    return "kernel" if backend == "auto" and fits and not parallel \
+        else "torch"
 
 
 def turbo_decode_device(sys_symbols, non_sys_symbols_1, non_sys_symbols_2,
@@ -694,9 +724,11 @@ def turbo_decode_device(sys_symbols, non_sys_symbols_1, non_sys_symbols_2,
     state-metric warmup halos.
     ``backend``: ``'auto'`` takes the K3 route (the CUDA kernel on the
     card, its plain version on a CPU tensor) for every trellis K3 takes
-    (:func:`_cuda_bcjr_fits`), unless ``parallel=True``; ``'cuda'``
+    (:func:`_cuda_bcjr_fits`: up to ``MAX_STATES`` = 16 states), unless
+    ``parallel=True``, and the XLA-order cores for the rest; ``'cuda'``
     requires the kernel and raises on a CPU tensor or for a trellis it
-    does not take; ``'torch'`` runs the XLA-order cores on any device.
+    does not take; ``'torch'`` runs the XLA-order cores on any device
+    (:func:`turbo_route`).
     ``kernel_io``: ``"bf16"`` rounds the kernel's streams and outputs to
     bfloat16.
     ``window_init``: ``"warmup"`` re-acquires window boundary states every
@@ -706,9 +738,6 @@ def turbo_decode_device(sys_symbols, non_sys_symbols_1, non_sys_symbols_2,
     ``ext_scale``: the extrinsic scaling factor (Vogt & Finger 2000); 1.0
     is the reference's unscaled exchange.
     """
-    if backend not in _BACKENDS:
-        raise ValueError(f"backend must be one of {_BACKENDS}, got "
-                         f"{backend!r}")
     if kernel_io not in ("f32", "bf16"):
         raise ValueError('kernel_io must be "f32" or "bf16"')
     squeeze = np.ndim(sys_symbols) == 1
@@ -723,18 +752,7 @@ def turbo_decode_device(sys_symbols, non_sys_symbols_1, non_sys_symbols_2,
         raise ValueError(
             f"window warmup {win[1]} exceeds chunk {win[0]}; the halo fold "
             "needs warmup <= chunk")
-    fits = _cuda_bcjr_fits(trellis)
-    if backend == "cuda":
-        if dev.type != "cuda":
-            raise ValueError("backend='cuda' needs a CUDA tensor, got one on "
-                             f"{dev}")
-        if not fits:
-            raise NotImplementedError(
-                "backend='cuda' takes binary trellises with a power-of-two "
-                "number of states and bijective per-input state maps; use "
-                "backend='auto'")
-    route = ("kernel" if backend == "cuda"
-             or (backend == "auto" and fits and not parallel) else "torch")
+    route = turbo_route(trellis, backend, dev.type, bool(parallel))
     if window_init not in ("warmup", "nii"):
         raise ValueError('window_init must be "warmup" or "nii"')
     if window_init == "nii" and win is None:

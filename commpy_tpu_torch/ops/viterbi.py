@@ -23,21 +23,23 @@ Two paths, chosen by the trellis as the JAX package chooses:
 
 * binary-input, shift-structured trellises (the j-th predecessor of s is
   ``((s & (S/2-1)) << 1) | j`` and the input bit entering s is its MSB,
-  every feedforward k=1 code) go to the ACS and traceback kernels of
-  ``kernels/viterbi_acs.py``: the CUDA kernels for a CUDA tensor (which
-  raise for a trellis beyond their limits), their plain PyTorch versions
-  for a CPU tensor;
+  every feedforward k=1 code) within the kernels' limits (``acs_plan``:
+  S <= 1024, n <= 8) go to the ACS and traceback kernels of
+  ``kernels/viterbi_acs.py``: the CUDA kernels for a CUDA tensor, their
+  plain PyTorch versions for a CPU tensor;
 * every other trellis (k > 1, recursive codes whose input bit is not the
-  state MSB) runs the general table-driven path in plain PyTorch, as the
-  JAX package runs its XLA scan.
+  state MSB, and shift-structured ones past the kernels' limits) runs
+  the general table-driven path in plain PyTorch, as the JAX package
+  runs its XLA scan.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..kernels.viterbi_acs import (UNREACHED, acs_forward, acs_forward_plain,
-                                   traceback, traceback_plain)
+from ..kernels.viterbi_acs import (MAX_N, MAX_STATES, UNREACHED, acs_forward,
+                                   acs_forward_plain, acs_plan, traceback,
+                                   traceback_plain)
 from ..utils.bits import unpack_bits
 from ..utils.device import device_constant, on_device
 from .trellis import Trellis
@@ -133,6 +135,49 @@ def _traceback_windows(dec, best, pred_state, pred_input, k: int,
     return unpack_bits(pred_input[cur, j], k).reshape(B, T * k)
 
 
+def _kernels_take(trellis: Trellis) -> bool:
+    """Whether K1 and K2 take this trellis: shift-structured, with a
+    number of states and a codeword width that ``acs_plan`` accepts."""
+    if not _is_shift_structured(trellis):
+        return False
+    try:
+        acs_plan(trellis.number_states, trellis.n, 1)
+    except ValueError:
+        return False
+    return True
+
+
+def viterbi_route(trellis: Trellis, backend: str, device_type: str) -> str:
+    """The decoder's route for ``trellis`` on a tensor of ``device_type``.
+
+    ``'kernels'``: K1 and K2 (the CUDA kernels on ``'cuda'``, their plain
+    versions on the CPU); ``'plain'``: the kernels' plain versions on any
+    device; ``'general'``: the table-driven path that takes any trellis.
+    ``backend='auto'`` takes the kernels for every trellis they take and
+    the general path for the rest; ``'cuda'`` raises unless the tensor is
+    on the card and the kernels take the trellis; ``'torch'`` takes the
+    plain versions for a shift-structured trellis, else the general path.
+    """
+    if backend not in _BACKENDS:
+        raise ValueError(f"backend must be one of {_BACKENDS}, got "
+                         f"{backend!r}")
+    if backend == "cuda":
+        if device_type != "cuda":
+            raise ValueError("backend='cuda' needs a CUDA tensor, got one on "
+                             f"{device_type}")
+        if not _kernels_take(trellis):
+            raise NotImplementedError(
+                "backend='cuda' takes binary shift-structured trellises of "
+                f"at most {MAX_STATES} states and {MAX_N} outputs (got "
+                f"{trellis.number_states} states, n = {trellis.n}, shift-"
+                f"structured: {_is_shift_structured(trellis)}); use "
+                "backend='auto'")
+        return "kernels"
+    if backend == "torch":
+        return "plain" if _is_shift_structured(trellis) else "general"
+    return "kernels" if _kernels_take(trellis) else "general"
+
+
 def viterbi_decode_device(coded_bits, trellis: Trellis, tb_depth=None,
                           decoding_type="hard", L=None, backend="auto",
                           exact: bool = False, fuse_bm=None, device="cuda"):
@@ -145,13 +190,13 @@ def viterbi_decode_device(coded_bits, trellis: Trellis, tb_depth=None,
     trellis : Trellis
     tb_depth : traceback depth (default ``min(5 * total_memory, L)``, >= 2)
     L : number of message bits to return (default ``n_coded * k / n``)
-    backend : ``'auto'`` sends shift-structured binary trellises to the ACS
-        and traceback kernels (the CUDA kernels on the card, which raise
-        ``NotImplementedError`` beyond S = 1024 states or n = 8 outputs;
-        their plain versions on the CPU) and every other trellis to the
-        general path; ``'cuda'`` requires the CUDA kernels and raises on
-        the CPU or for a trellis that is not shift-structured; ``'torch'``
-        uses plain PyTorch on any device.
+    backend : ``'auto'`` sends shift-structured binary trellises of at
+        most S = 1024 states and n = 8 outputs to the ACS and traceback
+        kernels (the CUDA kernels on the card, their plain versions on the
+        CPU) and every other trellis to the general path; ``'cuda'``
+        requires the CUDA kernels and raises on the CPU or for a trellis
+        they do not take; ``'torch'`` uses plain PyTorch on any device
+        (:func:`viterbi_route`).
     exact, fuse_bm : accepted for parity with the JAX package and ignored.
         They chose TPU matrix-unit precision and kernel fusion; float32
         arithmetic on the CUDA cores is already exact, so there is nothing
@@ -163,9 +208,6 @@ def viterbi_decode_device(coded_bits, trellis: Trellis, tb_depth=None,
     -------
     decoded_bits : int8 ``[..., L]`` on ``device``
     """
-    if backend not in _BACKENDS:
-        raise ValueError(f"backend must be one of {_BACKENDS}, got "
-                         f"{backend!r}")
     x = on_device(coded_bits, device)
     squeeze = x.ndim == 1
     if squeeze:
@@ -191,21 +233,12 @@ def viterbi_decode_device(coded_bits, trellis: Trellis, tb_depth=None,
     T = r.shape[1]
 
     S, I = trellis.number_states, trellis.number_inputs
-    shift = _is_shift_structured(trellis)
-    if backend == "cuda":
-        if dev.type != "cuda":
-            raise ValueError("backend='cuda' needs a CUDA tensor, got one on "
-                             f"{dev}")
-        if not shift:
-            raise NotImplementedError(
-                "backend='cuda' takes binary shift-structured trellises; "
-                "use backend='auto'")
-
-    if backend == "torch" and shift:
+    route = viterbi_route(trellis, backend, dev.type)
+    if route == "plain":
         C, hc = _kernel_tables(C_np, trellis, decoding_type, dev)
         dec, best = acs_forward_plain(r, C, hc)
         bits = traceback_plain(dec, best, S, tb_depth)
-    elif shift:
+    elif route == "kernels":
         C, hc = _kernel_tables(C_np, trellis, decoding_type, dev)
         dec, best = acs_forward(r, C, hc)
         bits = traceback(dec, best, S, tb_depth)

@@ -2,7 +2,7 @@
 
 Every name the JAX package's ``ops.__all__`` lists is exported by the
 port, except the modules the port has not reached yet (ROADMAP.md,
-queue 1, items 2-7); the port may list more of its own submodules.
+queue 1, items 3-7); the port may list more of its own submodules.
 Importing the port's ``ops`` loads no ``jax`` and no ``commpy_tpu``.
 """
 import importlib.util
@@ -15,11 +15,10 @@ import commpy_tpu.ops as jops
 import commpy_tpu_torch.ops as ops
 
 # modules of commpy_tpu.ops the port has not ported yet, by ROADMAP.md
-# queue 1 item: 2 MIMO; 3 OFDM and DSP; 4 algebraic codes; 5 polar;
+# queue 1 item: 3 single-carrier DSP; 4 algebraic codes; 5 polar;
 # 6 multi-GPU streams
 NOT_PORTED = {
-    "mimo",
-    "ofdm", "sync", "impairments", "filters", "sequences", "fir", "equalize",
+    "filters", "sequences", "fir", "equalize",
     "galois", "bch", "rs", "tpc", "algebraic", "crc",
     "polar",
     "stream",

@@ -30,6 +30,7 @@ torch.set_num_threads(1)
 
 RSC4 = (np.array([2]), np.array([[1, 7]]), 5, "rsc")
 RSC8 = (np.array([3]), np.array([[1, 15]]), 13, "rsc")
+RSC32 = (np.array([5]), np.array([[1, 0o67]]), 0o45, "rsc")
 
 
 def _rel_close(got, want, tol=1e-4):
@@ -294,6 +295,32 @@ def test_cuda_bcjr_fits_guards():
     # k = 2: four inputs, not the kernel's binary input
     assert not PT._cuda_bcjr_fits(Trellis(np.array([1, 1]),
                                           np.array([[1, 2, 0], [0, 1, 3]])))
+
+
+@pytest.mark.parametrize("kw", [{}, {"window": (16, 8)}],
+                         ids=["whole-frame", "warmup-window"])
+def test_32_state_turbo_code_decodes_like_jax(kw):
+    # 32 states is past K3's MAX_STATES: 'auto' takes the torch route on
+    # either device, decodes to the JAX package's bits, and 'cuda' raises
+    # with the limit
+    pt = Trellis(*RSC32)
+    assert pt.number_states == 32 and not PT._cuda_bcjr_fits(pt)
+    for device_type in ("cpu", "cuda"):
+        assert PT.turbo_route(pt, "auto", device_type) == "torch"
+        assert PT.turbo_route(Trellis(*RSC4), "auto", device_type) == "kernel"
+    with pytest.raises(NotImplementedError, match="at most 16"):
+        PT.turbo_route(pt, "cuda", "cuda")
+    with pytest.raises(ValueError, match="S <= 16"):
+        BK.bcjr_plan(64, 32, 96)
+    msg, (sy, p1, p2), p = _frames(RSC32, 64, 3, 0.6, 17)
+    want = np.asarray(JT.turbo_decode_device(
+        sy, p1, p2, JTrellis(*RSC32), 0.6, 3, p, **kw))
+    BK.bcjr_appdiff.launches = 0
+    got = PT.turbo_decode_device(sy, p1, p2, pt, 0.6, 3, p, device="cpu",
+                                 **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy() != msg).mean() < 0.05
+    assert BK.bcjr_appdiff.launches == 0
 
 
 # ------------------------------------------------------------------- the link

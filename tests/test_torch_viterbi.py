@@ -148,23 +148,57 @@ def test_cpu_tensors_take_the_plain_path_without_launching():
 
 
 def test_auto_sends_every_shift_trellis_to_the_kernels(monkeypatch):
-    # S = 2048 is past the CUDA ACS kernel's limit: 'auto' still takes the
-    # kernels' route (their plain versions here; on the card the kernel
-    # raises NotImplementedError), never the general path
-    def general_path(*args):
-        raise AssertionError("the general path was taken")
-
-    monkeypatch.setattr(V, "_viterbi_core", general_path)
+    # every shift trellis the kernels take goes to them on either device;
+    # S = 2048 (K = 12) is past the CUDA ACS kernel's limit, so 'auto'
+    # takes the general path there, as it does for any trellis K1/K2 do
+    # not take, and 'cuda' raises with the limit
+    for code in ("S4", "S64", "S256"):
+        for device_type in ("cpu", "cuda"):
+            assert V.viterbi_route(Trellis(*CODES[code]), "auto",
+                                   device_type) == "kernels"
     pt = Trellis(np.array([11]), np.array([[0o4335, 0o5723]]))
     assert pt.number_states == 2048 and V._is_shift_structured(pt)
+    for device_type in ("cpu", "cuda"):
+        assert V.viterbi_route(pt, "auto", device_type) == "general"
+        assert V.viterbi_route(Trellis(*CODES["k2"]), "auto",
+                               device_type) == "general"
+    assert V.viterbi_route(pt, "torch", "cpu") == "plain"
+    with pytest.raises(NotImplementedError, match="at most 1024 states"):
+        V.viterbi_route(pt, "cuda", "cuda")
+
+    def kernels(*args):
+        raise AssertionError("the kernels' route was taken")
+
+    monkeypatch.setattr(V, "acs_forward", kernels)
     x = np.random.RandomState(2).randn(2, 2 * 24).astype(np.float32)
     got = V.viterbi_decode_device(x, pt, 12, "soft", device="cpu")
     want = V.viterbi_decode_device(x, pt, 12, "soft", backend="torch",
                                    device="cpu")
     np.testing.assert_array_equal(got.numpy(), want.numpy())
-    with pytest.raises(AssertionError, match="general path"):
-        V.viterbi_decode_device(x, Trellis(*CODES["k2"]), 12, "soft",
-                                L=24, device="cpu")
+    with pytest.raises(AssertionError, match="kernels' route"):
+        V.viterbi_decode_device(x, Trellis(*CODES["S64"]), 12, "soft",
+                                device="cpu")
+
+
+@pytest.mark.parametrize("decoding_type", ["soft", "hard"])
+def test_k12_code_decodes_like_jax(decoding_type):
+    # K = 12 (S = 2048): 'auto' decodes it (the general path) to the JAX
+    # package's bits
+    gens = (np.array([11]), np.array([[0o4335, 0o5723]]))
+    jt, pt = JTrellis(*gens), Trellis(*gens)
+    rng = np.random.RandomState(31)
+    msg = rng.randint(0, 2, (3, 40))
+    coded = np.asarray(jencode(msg, jt)[0]).astype(np.float64)
+    if decoding_type == "soft":
+        x = (2 * coded - 1) * 2.0 + rng.randn(*coded.shape) * 1.2
+    else:
+        x = np.where(rng.rand(*coded.shape) < 0.03, 1 - coded, coded)
+    x = x.astype(np.float32)
+    want = np.asarray(jdecode_device(x, jt, 30, decoding_type, L=40))
+    got = V.viterbi_decode_device(x, pt, 30, decoding_type, L=40,
+                                  device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy() != msg).mean() < 0.05
 
 
 def test_shift_structure_detection():
