@@ -105,6 +105,26 @@ Run from the root of a checkout:  python3 chip_smoke.py
    against their plain versions, bit for bit; then 'auto' decoding of a
    K=12 code and a 32-state turbo code (the general and torch routes)
    against the plain routes, with ``backend='cuda'`` raising;
+12. (run after 11) Paths H-L, each link through ``montecarlo_ber`` with
+   the kernel counts set to 0 just before and read just after, then timed
+   and profiled: H, the RRC pulse-shaped 16-QAM K=7 link (sps 4, span 8,
+   alpha 0.35, max-log) at F=2048, no error at 35 dB and errors at 5 dB,
+   and with exact LLRs its errors within 1.5x of the symbol-rate link's
+   at the highest of 8-12 dB where both count 1000; I, the ISI link
+   (channel H3, 21-tap MMSE, QPSK, K=7) at F=2048, no error at 35 dB,
+   errors at 2 dB and at 8 dB a tenth of a one-tap receiver's; K1 and K2
+   on H's and I's own LLRs against their plain versions; the equalizer at
+   the JAX bench's shape (B=256, n=4096, Lh=5, T=31, per-batch taps); J,
+   the DVB-S2-class BCH (16200, t=12) decoder on 256 words of 12 errors
+   (all corrected), the (31,21) BCH link hard against Chase-4 at 4 dB
+   (hard errors more than three times Chase's, Chase's not 0) and the
+   (31,21)^2 product code at B=64 (the card's first 4 frames decoded as
+   the host decodes them); K, RS(255,223) on 2048 words of 16 symbol
+   errors (all corrected) and the RS(204,188) 256-QAM link, hard and GMD,
+   clean at 40 dB and erring at 15 dB; L, the DVB-S2 BCH (t=12) + LDPC
+   (16200, 1/2) QPSK MSA-30 concatenation at F=512, clean at 5 dB and
+   erring at 1 dB, K5 on a step's own LLRs at 5 and 1 dB against its
+   plain version bit for bit, and the LDPC and BCH stages timed apart;
 
 With ``--ab DIR`` (a checkout of another commit, e.g. the parent unpacked
 with ``git archive``), it also loads that checkout's ``commpy_tpu_torch``
@@ -1457,6 +1477,340 @@ def auto_past_the_limits(torch, report):
     report["auto_past_limits"] = out
 
 
+def link_receive(torch, link, frames, snr_db, seed):
+    """Bits and the decoder input of a link without a channel draw (Paths
+    H-L), drawn as its ``link_step`` draws them."""
+    from commpy_tpu_torch.ops.channel import crandn
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    bits = torch.randint(0, 2, (frames, link.frame_bits), generator=g,
+                         device=dev, dtype=torch.int8)
+    noise = crandn(g, (frames,) + link.extras["noise_shape"], dev)
+    return bits, link.receive(bits, noise, float(link.noise_std_fn(snr_db)))
+
+
+def viterbi_on_link(torch, link, snr_db, seed, label, k7):
+    """K1 and K2 against their plain versions on a link's own LLRs (its
+    receive chain at ``snr_db``, F=2048), and the whole decode by the
+    kernel route against the plain route."""
+    from commpy_tpu_torch.ops.viterbi import (received_words,
+                                              viterbi_decode_device)
+
+    _, rx = link_receive(torch, link, 2048, snr_db, seed)
+    tallies = {"acs_forward": Tally(), "traceback": Tally()}
+    compare_case(torch, tallies, k7, "soft", 2048, link.frame_bits, 30, 0,
+                 r=received_words(rx, k7, "soft", link.frame_bits))
+    kern = viterbi_decode_device(rx, k7, 30, "soft", L=link.frame_bits)
+    plain = viterbi_decode_device(rx, k7, 30, "soft", L=link.frame_bits,
+                                  backend="torch")
+    tallies["traceback"].add(kern, plain)
+    for name, t in tallies.items():
+        if t.mismatches:
+            fail(f"{label}: {name} disagrees with its plain version on the "
+                 f"path's LLRs ({t.mismatches} of {t.compared})")
+    return {k: (t.mismatches, t.compared) for k, t in tallies.items()}
+
+
+def with_errors(rng, cw, n_err, symbols=None):
+    """``cw`` (a host array) with ``n_err`` errors a word at distinct
+    positions: bits flipped, or symbols XORed with a non-zero value below
+    ``symbols``."""
+    rx = cw.copy()
+    for b in range(cw.shape[0]):
+        pos = rng.choice(cw.shape[1], n_err, replace=False)
+        rx[b, pos] ^= 1 if symbols is None else rng.randint(1, symbols,
+                                                            n_err)
+    return rx
+
+
+def dsp_code_paths(torch, report, k7):
+    """Paths H-L: the RRC and ISI conv links (K1, K2), the BCH decoders and
+    link and the turbo product code, the RS decoder and link, and the
+    DVB-S2 BCH + LDPC concatenation (K5), each link through
+    ``montecarlo_ber`` with the kernel counts set to 0 just before and
+    read just after; the kernels against their plain versions on the
+    paths' own inputs; the decoders' and links' rates and profiles, and
+    the equalizer at the JAX bench's shape.  Returns {kernel: {path:
+    launches}}."""
+    from commpy_tpu_torch.kernels import qc_bp as QK
+    from commpy_tpu_torch.kernels import viterbi_acs as K
+    from commpy_tpu_torch.models import (make_bch_awgn_link,
+                                         make_conv_awgn_link,
+                                         make_dvbs2_concat_link,
+                                         make_isi_conv_link,
+                                         make_rrc_conv_awgn_link,
+                                         make_rs_awgn_link)
+    from commpy_tpu_torch.ops import bch as BC
+    from commpy_tpu_torch.ops import dvbs2 as D
+    from commpy_tpu_torch.ops import equalize as E
+    from commpy_tpu_torch.ops import rs as RS
+    from commpy_tpu_torch.ops import tpc as TPC
+    from commpy_tpu_torch.ops.qcldpc import _llr_max, _pos_masks, qc_rows
+
+    dev = torch.device("cuda")
+    launches = {"acs_forward": {}, "traceback": {}, "qc_bp_streamed": {}}
+    out = {}
+
+    def counted(kernels, path, run):
+        for kern in kernels:
+            kern.launches = 0
+        res = run()
+        for kern in kernels:
+            launches[kern.__name__][path] = kern.launches
+            if not kern.launches:
+                fail(f"Path {path} never launched {kern.__name__}")
+        return res
+
+    # ---- Path H: RRC pulse-shaped 16-QAM K=7 soft, F=2048, 12 dB
+    rrc = make_rrc_conv_awgn_link(trellis=k7, modulation_m=16,
+                                  frame_bits=1200, sps=4, rrc_span_symbols=8,
+                                  rrc_alpha=0.35)
+    res = counted((K.acs_forward, K.traceback), "H",
+                  lambda: mc(rrc, [12.0, 35.0, 5.0], 60, 2048, 1))
+    errs_h = [int(e) for e in res.bit_errors]
+    # the unity-gain Nyquist cascade: with exact LLRs the waveform link
+    # errs as the symbol-rate link of the same code and constellation
+    rrc_exact = make_rrc_conv_awgn_link(trellis=k7, modulation_m=16,
+                                        frame_bits=1200, use_maxlog=False)
+    sym = make_conv_awgn_link(trellis=k7, modulation_m=16, frame_bits=1200,
+                              decoding_type="soft", use_psk=False)
+    snrs = [8.0, 9.0, 10.0, 11.0, 12.0]
+    e_wave = mc(rrc_exact, snrs, 63, 2048, 2).bit_errors
+    e_sym = mc(sym, snrs, 64, 2048, 2).bit_errors
+    both = [i for i in range(len(snrs)) if min(e_wave[i], e_sym[i]) >= 1000]
+    if not both:
+        fail(f"Path H: no SNR of {snrs} where both links count 1000 errors "
+             f"(waveform {e_wave}, symbol rate {e_sym})")
+    i = both[-1]
+    ratio = float(e_wave[i] / e_sym[i])
+    out["path_h"] = {"errs_12_35_5db": errs_h,
+                     "bits_a_step": 2048 * 1200,
+                     "exact_llr_errs": {"snrs_db": snrs,
+                                        "waveform": e_wave.tolist(),
+                                        "symbol_rate": e_sym.tolist(),
+                                        "compared_at_db": snrs[i],
+                                        "ratio": ratio},
+                     "launches": {k: v["H"] for k, v in launches.items()
+                                  if "H" in v}}
+    print(f"Path H RRC 16-QAM K=7 max-log, F=2048: errors at 12/35/5 dB "
+          f"{errs_h}; exact LLRs, waveform vs symbol-rate link errors "
+          f"{e_wave.tolist()} vs {e_sym.tolist()} at {snrs} dB, ratio "
+          f"{ratio:.3f} at {snrs[i]} dB; launches {out['path_h']['launches']}",
+          flush=True)
+    if not errs_h[1] == 0 < errs_h[2]:
+        fail(f"Path H: errors at 35/5 dB {errs_h[1:]}")
+    if not 1 / 1.5 <= ratio <= 1.5:
+        fail(f"Path H: waveform/symbol-rate error ratio {ratio} at "
+             f"{snrs[i]} dB")
+    out["path_h"]["parity"] = viterbi_on_link(torch, rrc, 12.0, 65,
+                                              "Path H", k7)
+    out["path_h"]["timing"] = time_link(torch, rrc, 2048, 12.0, 66,
+                                        "Path H RRC conv")
+    require_kernels(out["path_h"]["timing"], "Path H",
+                    ["acs_warp_kernel", "traceback_kernel"])
+
+    # ---- Path I: ISI channel H3 + 21-tap MMSE, QPSK K=7 soft, F=2048, 8 dB
+    h3 = (np.array([1.0, 0.45, -0.2]) + 1j * np.array([0.1, -0.3, 0.05])
+          ).astype(np.complex64)
+    isi = make_isi_conv_link(trellis=k7, channel_taps=h3, n_eq_taps=21,
+                             modulation_m=4, frame_bits=1200)
+    res = counted((K.acs_forward, K.traceback), "I",
+                  lambda: mc(isi, [8.0, 35.0, 2.0], 67, 2048, 1))
+    errs_i = [int(e) for e in res.bit_errors]
+    one_tap = make_isi_conv_link(trellis=k7, channel_taps=h3, n_eq_taps=1,
+                                 modulation_m=4, frame_bits=1200)
+    e_eq = step_errors(torch, isi, 2048, 8.0, 68)
+    e_one = step_errors(torch, one_tap, 2048, 8.0, 68)
+    out["path_i"] = {"errs_8_35_2db": errs_i, "bits_a_step": 2048 * 1200,
+                     "errs_8db_21tap_vs_1tap": [e_eq, e_one],
+                     "launches": {k: v["I"] for k, v in launches.items()
+                                  if "I" in v}}
+    print(f"Path I ISI H3 + MMSE-21 QPSK K=7, F=2048: errors at 8/35/2 dB "
+          f"{errs_i}; at 8 dB 21 taps {e_eq} vs 1 tap {e_one}; launches "
+          f"{out['path_i']['launches']}", flush=True)
+    if not errs_i[1] == 0 < errs_i[2]:
+        fail(f"Path I: errors at 35/2 dB {errs_i[1:]}")
+    if not e_eq * 10 < e_one:
+        fail(f"Path I: the 21-tap equalizer ({e_eq} errors) does not beat "
+             f"one tap ({e_one}) tenfold at 8 dB")
+    out["path_i"]["parity"] = viterbi_on_link(torch, isi, 8.0, 69, "Path I",
+                                              k7)
+    out["path_i"]["timing"] = time_link(torch, isi, 2048, 8.0, 70,
+                                        "Path I ISI MMSE conv")
+    require_kernels(out["path_i"]["timing"], "Path I",
+                    ["acs_warp_kernel", "traceback_kernel"])
+
+    # equalizer at the JAX bench's shape (bench_all.py equalize_mmse_t31_l5):
+    # per-batch MMSE taps, B=256, n=4096, Lh=5, T=31
+    rng = np.random.RandomState(71)
+    he = torch.as_tensor(((rng.randn(256, 5) + 1j * rng.randn(256, 5))
+                          * np.sqrt(0.5 / 5)).astype(np.complex64),
+                         device=dev)
+    ye = torch.as_tensor((rng.randn(256, 4096) + 1j * rng.randn(256, 4096)
+                          ).astype(np.complex64), device=dev)
+    d31 = E.equalizer_delay(31, 5)
+
+    def eq_bench():
+        w = E.mmse_fir_taps(he, 0.05, 31)
+        return torch.vmap(lambda yy, ww: E.equalize(yy, ww, d31))(ye, w)
+
+    z = eq_bench()
+    w = E.mmse_fir_taps(he, 0.05, 31)
+    for b in (0, 255):
+        if not torch.equal(z[b], E.equalize(ye[b], w[b], d31)):
+            fail(f"equalizer bench: the mapped row {b} differs from its "
+                 "own equalize")
+    eq_ms = cuda_ms(torch, eq_bench, 10)
+    out["equalize_mmse_t31_l5"] = {"ms": eq_ms,
+                                   "msamples_per_s": 256 * 4096 / eq_ms / 1e3}
+    print(f"equalize_mmse_t31_l5 (B=256, n=4096, Lh=5, T=31, per-batch "
+          f"taps): {eq_ms:.4f} ms, {256 * 4096 / eq_ms / 1e3:.1f} "
+          f"Msamples/s", flush=True)
+
+    # ---- Path J: BCH decoders, the (31,21) link, the product code
+    outer16 = BC.bch_construct(16, 12, shorten=(1 << 16) - 1 - 16200)
+    rng = np.random.RandomState(72)
+    cw = BC.bch_encode(outer16, rng.randint(0, 2, (256, outer16.k)))
+    rx = torch.as_tensor(with_errors(rng, cw.cpu().numpy(), 12), device=dev)
+    dec16 = BC.make_bch_decoder(outer16)
+    corr, n_err, ok = dec16(rx)
+    if not (bool(ok.all()) and bool((n_err == 12).all())
+            and torch.equal(corr, cw)):
+        fail(f"Path J: BCH(16200, t=12) decoded {int(ok.sum())} of 256 "
+             f"words, n_err {n_err.unique().tolist()}")
+    bch_ms = cuda_ms(torch, lambda: dec16(rx), 5)
+    c31 = BC.bch_construct(5, 2)
+    hard31 = make_bch_awgn_link(code=c31, decoder="hard")
+    chase31 = make_bch_awgn_link(code=c31, decoder="chase", chase_p=4)
+    eh = step_errors(torch, hard31, 4096, 4.0, 73)
+    ec = step_errors(torch, chase31, 4096, 4.0, 73)
+    if not eh > 3 * ec > 0:
+        fail(f"Path J: (31,21) hard {eh} vs Chase {ec} errors at 4 dB")
+    rng = np.random.RandomState(74)
+    data = rng.randint(0, 2, (64, 21, 21))
+    cwt = TPC.tpc_encode(c31, c31, data).cpu().numpy()
+    llr_t = torch.as_tensor(((1.0 - 2.0 * cwt) * 4.0 + rng.normal(
+        0, 1.4, cwt.shape)).astype(np.float32), device=dev)
+    tpc = TPC.make_tpc_decoder(c31, c31, iterations=4, p=4)
+    d_card, _ = tpc(llr_t)
+    d_cpu, _ = TPC.make_tpc_decoder(c31, c31, iterations=4, p=4,
+                                    device="cpu")(llr_t[:4].cpu())
+    tpc_differ = int((d_card[:4].cpu() != d_cpu).sum())
+    if tpc_differ:
+        fail(f"Path J: the product decoder on the card differs from the "
+             f"host in {tpc_differ} bits of the first 4 frames")
+    tpc_ms = cuda_ms(torch, lambda: tpc(llr_t), 3)
+    out["path_j"] = {
+        "bch_dvbs2_16200_t12": {"ms": bch_ms, "info_bits_per_s":
+                                256 * outer16.k / (bch_ms * 1e-3),
+                                "words": 256, "errors_a_word": 12},
+        "bch31_4db_errs_hard_chase": [eh, ec], "bits_a_step": 4096 * 21,
+        "tpc_31_21_sq_chase4": {"ms": tpc_ms, "info_bits_per_s":
+                                64 * 441 / (tpc_ms * 1e-3),
+                                "data_errs": int((d_card.cpu().numpy()
+                                                  != data).sum()),
+                                "card_vs_host_bits_differ": tpc_differ}}
+    print(f"Path J: bch_dvbs2_16200_t12 B=256 (12 errors a word, all "
+          f"corrected) {bch_ms:.3f} ms, "
+          f"{out['path_j']['bch_dvbs2_16200_t12']['info_bits_per_s']:.4g} "
+          f"info bits/s; (31,21) link at 4 dB hard {eh} vs Chase-4 {ec} "
+          f"errors of {4096 * 21}; tpc_31_21_sq_chase4 B=64 {tpc_ms:.3f} "
+          f"ms, {out['path_j']['tpc_31_21_sq_chase4']['info_bits_per_s']:.4g}"
+          f" info bits/s, card = host on 4 frames", flush=True)
+    out["path_j"]["timing"] = time_link(torch, chase31, 4096, 4.0, 75,
+                                        "Path J BCH (31,21) Chase-4")
+
+    # ---- Path K: RS(255,223) decoder, RS(204,188) link hard and GMD
+    c255 = RS.rs_construct(8, 16)
+    rng = np.random.RandomState(76)
+    cw = RS.rs_encode(c255, rng.randint(0, 256, (2048, c255.k)))
+    rx = torch.as_tensor(with_errors(rng, cw.cpu().numpy(), 16, 256),
+                         device=dev)
+    dec255 = RS.make_rs_decoder(c255)
+    corr, n_err, ok = dec255(rx)
+    if not (bool(ok.all()) and bool((n_err == 16).all())
+            and torch.equal(corr, cw)):
+        fail(f"Path K: RS(255,223) decoded {int(ok.sum())} of 2048 words")
+    rs_ms = cuda_ms(torch, lambda: dec255(rx), 3)
+    c204 = RS.rs_construct(8, 8, shorten=51, fcr=0)
+    rs_links = {d: make_rs_awgn_link(code=c204, decoder=d)
+                for d in ("hard", "gmd")}
+    rs_errs = {d: [step_errors(torch, lk, 2048, snr, 77)
+                   for snr in (40.0, 15.0)] for d, lk in rs_links.items()}
+    out["path_k"] = {
+        "rs_255_223_t16": {"ms": rs_ms, "info_bits_per_s":
+                           2048 * c255.k * 8 / (rs_ms * 1e-3),
+                           "words": 2048, "errors_a_word": 16},
+        "rs204_errs_40_15db": rs_errs, "bits_a_step": 2048 * 188 * 8}
+    print(f"Path K: rs_255_223_t16 B=2048 (16 symbol errors a word, all "
+          f"corrected) {rs_ms:.3f} ms, "
+          f"{out['path_k']['rs_255_223_t16']['info_bits_per_s']:.4g} info "
+          f"bits/s; RS(204,188) 256-QAM link errors at 40/15 dB {rs_errs}",
+          flush=True)
+    for d, (hi, lo) in rs_errs.items():
+        if not hi == 0 < lo:
+            fail(f"Path K: RS(204,188) {d} errors at 40/15 dB {hi}/{lo}")
+    out["path_k"]["timing"] = {
+        d: time_link(torch, lk, 2048, 15.0, 78, f"Path K RS(204,188) {d}")
+        for d, lk in rs_links.items()}
+
+    # ---- Path L: DVB-S2 BCH(t=12) + LDPC (16200, 1/2) QPSK, MSA-30, F=512
+    pd = D.dvbs2_qc_params(D.synthetic_address_table(16200, "1/2", seed=0),
+                           16200, "1/2")
+    cc = make_dvbs2_concat_link(qc_params=pd)
+    res = counted((QK.qc_bp_streamed,), "L",
+                  lambda: mc(cc, [5.0, 1.0], 79, 512, 1))
+    errs_l = [int(e) for e in res.bit_errors]
+    print(f"Path L DVB-S2 BCH(t=12, k={cc.frame_bits}) + LDPC (16200, 1/2) "
+          f"QPSK MSA-30, F=512: errors at 5/1 dB {errs_l}; qc_bp_streamed "
+          f"launches {launches['qc_bp_streamed']['L']}", flush=True)
+    if not errs_l[0] == 0 < errs_l[1]:
+        fail(f"Path L: errors at 5/1 dB {errs_l}")
+    # K5 on a step's own LLRs, as the decoder hands them to it
+    q, Z, k = pd["dvbs2"]["q"], pd["Z"], pd["k_bits"]
+    k5_tally = QCTally()
+    stages = {}
+    for snr, seed in ((5.0, 80), (1.0, 81)):
+        _, llr = link_receive(torch, cc, 512, snr, seed)
+        x = torch.cat([llr[:, :k], D._parity_to_qc(llr[:, k:], q, Z)], -1)
+        x = torch.clamp(x, -_llr_max, _llr_max).contiguous()
+        qc_compare(torch, k5_tally, QK.qc_bp_streamed,
+                   QK.qc_bp_streamed_plain, x, True, False, algorithm="MSA",
+                   n_iters=30, meta=(Z, pd["Nb"], qc_rows(pd)),
+                   msa_scale=0.75, pos_masks=_pos_masks(pd), msg_io="f32")
+        # the stages apart: the LDPC decode and the BCH decode
+        dec, _ = D.dvbs2_decode_device(llr, pd, "MSA", 30, msa_scale=0.75)
+        words = dec[:, :k].to(torch.int8)
+        dec_bch = BC.make_bch_decoder(cc.extras["outer"])
+        _, n_fix, ok = dec_bch(words)
+        stages[str(snr)] = {
+            "ldpc_ms": cuda_ms(torch, lambda: D.dvbs2_decode_device(
+                llr, pd, "MSA", 30, msa_scale=0.75), 3),
+            "bch_ms": cuda_ms(torch, lambda: dec_bch(words), 3),
+            "bch_words_corrected": int((ok & (n_fix > 0)).sum()),
+            "bch_words_refused": int((~ok).sum())}
+    # the Chien search's products: n_blocks x [F, (t+1)m] @ [(t+1)m, D*m]
+    chien_flop = 2 * 512 * 13 * 16 * 512 * 16 * 128
+    out["path_l"] = {"errs_5_1db": errs_l, "bits_a_step": 512 * cc.frame_bits,
+                     "launches": launches["qc_bp_streamed"]["L"],
+                     "k5_parity": {"mismatches": k5_tally.mismatches,
+                                   "cases": k5_tally.cases,
+                                   "compared": k5_tally.compared},
+                     "stages_ms": stages, "chien_flop_a_step": chien_flop}
+    print(f"Path L stages (CUDA events, F=512): {stages}; Chien search "
+          f"{chien_flop:.3g} flop a step; K5 on the path's LLRs: "
+          f"{k5_tally.mismatches} mismatches in {k5_tally.cases} cases, "
+          f"{k5_tally.compared} values", flush=True)
+    out["path_l"]["timing"] = time_link(torch, cc, 512, 5.0, 82,
+                                        "Path L DVB-S2 BCH + LDPC")
+    require_kernels(out["path_l"]["timing"], "Path L",
+                    ["qc_bp_streamed_kernel"])
+    report.update(out)
+    return launches
+
+
 def main():
     import torch
 
@@ -1903,6 +2257,11 @@ def main():
     auto_past_the_limits(torch, report)
 
     lap("paths_d_to_g")
+    # ---- Paths H-L: single-carrier DSP and the algebraic codes -----------
+    for name, paths in dsp_code_paths(torch, report, k7).items():
+        path_launches.setdefault(name, {}).update(paths)
+
+    lap("paths_h_to_l")
     # ---- timing -------------------------------------------------------
     timings = {}
     tb_inputs = {}
@@ -2330,6 +2689,8 @@ def main():
                 "second_sweeps_device_ms": other["sweeps_device_ms"]})
         if name == "qc_bp_streamed":
             kernels[-1].update({
+                "path_launches": {"B": launches_b,
+                                  **path_launches["qc_bp_streamed"]},
                 "redesigned": True,
                 "frames_per_sm_trade": t["frames_per_sm_trade"],
                 "second_frames_per_sm_trade": other["frames_per_sm_trade"],
@@ -2431,6 +2792,32 @@ def main():
                       "F=2048, 14 dB",
             "path_g": "OFDM 802.11n LDPC (1944, 1/2) 16-QAM, 4-tap "
                       "Rayleigh, LS CSI, F=512, 13 dB"},
+        "dsp_code_link_info_bits_per_s": {
+            "path_h": report["path_h"]["timing"]["info_bits_per_s"],
+            "path_i": report["path_i"]["timing"]["info_bits_per_s"],
+            "path_j": report["path_j"]["timing"]["info_bits_per_s"],
+            "path_k": {d: t["info_bits_per_s"]
+                       for d, t in report["path_k"]["timing"].items()},
+            "path_l": report["path_l"]["timing"]["info_bits_per_s"]},
+        "dsp_code_link_configs": {
+            "path_h": "RRC (sps 4, span 8, 0.35) 16-QAM + K=7 soft Viterbi, "
+                      "max-log, F=2048, 12 dB",
+            "path_i": "ISI H3 + MMSE-21 QPSK + K=7 soft Viterbi, F=2048, "
+                      "8 dB",
+            "path_j": "BCH (31,21) BPSK Chase-4 link, F=4096, 4 dB",
+            "path_k": "RS(204,188) fcr=0 256-QAM link, hard and GMD, "
+                      "F=2048, 15 dB",
+            "path_l": "DVB-S2 BCH t=12 + LDPC (16200, 1/2) QPSK MSA-30 "
+                      "layered, F=512, 5 dB"},
+        "decoder_info_bits_per_s": {
+            "bch_dvbs2_16200_t12":
+                report["path_j"]["bch_dvbs2_16200_t12"]["info_bits_per_s"],
+            "tpc_31_21_sq_chase4":
+                report["path_j"]["tpc_31_21_sq_chase4"]["info_bits_per_s"],
+            "rs_255_223_t16":
+                report["path_k"]["rs_255_223_t16"]["info_bits_per_s"]},
+        "equalize_mmse_t31_l5_msamples_per_s":
+            report["equalize_mmse_t31_l5"]["msamples_per_s"],
         "card": card, "seconds": report["seconds"], "phase_s": phase_s}),
         flush=True)
     os.makedirs("build", exist_ok=True)

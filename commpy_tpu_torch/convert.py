@@ -15,6 +15,12 @@ the modem's constellation.  Constellations pass through as NumPy arrays.
 * :func:`turbo_params_from_arrays` takes a turbo code's component
   trellis tables and interleaver permutation (``p_array``); those two are
   the code's whole state.
+* :func:`bch_code_from_fields`, :func:`rs_code_from_fields` and
+  :func:`crc_spec_from_fields` take the fields of a JAX package
+  ``BchCode``, ``RsCode`` or ``CrcSpec`` and rebuild the port's object
+  from its own construction, which must give the same generator
+  polynomial.  Filter, channel and equalizer taps pass through as NumPy
+  arrays.
 """
 from __future__ import annotations
 
@@ -25,7 +31,8 @@ from .ops.trellis import Trellis
 
 __all__ = ["TABLE_KEYS", "trellis_tables", "trellis_from_tables",
            "qc_params_from_arrays", "ldpc_params_from_arrays",
-           "turbo_params_from_arrays"]
+           "turbo_params_from_arrays", "bch_code_from_fields",
+           "rs_code_from_fields", "crc_spec_from_fields"]
 
 TABLE_KEYS = ("next_state_table", "output_table", "pred_state_table",
               "pred_input_table", "branch_codewords")
@@ -220,3 +227,72 @@ def turbo_params_from_arrays(d: dict):
             np.array_equal(np.sort(p), np.arange(p.size)):
         raise ValueError("p_array is not a permutation of range(L)")
     return trellis, p.astype(np.int64)
+
+
+def _fields(d, keys) -> dict:
+    """``d``'s ``keys`` as Python ints (genpoly / poly as int tuples); ``d``
+    is a dict or any object with those attributes."""
+    get = d.get if isinstance(d, dict) else (lambda k: getattr(d, k, None))
+    missing = [key for key in keys if get(key) is None]
+    if missing:
+        raise KeyError(f"missing fields: {missing}")
+    return {key: (tuple(int(c) for c in get(key))
+                  if key in ("genpoly", "poly") else int(get(key)))
+            for key in keys}
+
+
+def bch_code_from_fields(d):
+    """A port :class:`~commpy_tpu_torch.ops.bch.BchCode` from ``{n, k, m,
+    t, genpoly}`` (read off a JAX package ``BchCode``): the port's
+    ``bch_construct(m, t, shorten=2^m - 1 - n)`` must give the same k and
+    generator polynomial, else ``ValueError``."""
+    from .ops.bch import bch_construct
+
+    f = _fields(d, ("n", "k", "m", "t", "genpoly"))
+    code = bch_construct(f["m"], f["t"], shorten=(1 << f["m"]) - 1 - f["n"])
+    if (code.k, code.genpoly) != (f["k"], f["genpoly"]):
+        raise ValueError(f"fields {f} disagree with the BCH code of m="
+                         f"{f['m']}, t={f['t']}, n={f['n']} (k={code.k})")
+    return code
+
+
+def rs_code_from_fields(d):
+    """A port :class:`~commpy_tpu_torch.ops.rs.RsCode` from ``{n, k, m, t,
+    fcr, genpoly}`` (read off a JAX package ``RsCode``): the port's
+    ``rs_construct`` must give the same k and generator polynomial, else
+    ``ValueError``."""
+    from .ops.rs import rs_construct
+
+    f = _fields(d, ("n", "k", "m", "t", "fcr", "genpoly"))
+    code = rs_construct(f["m"], f["t"], shorten=(1 << f["m"]) - 1 - f["n"],
+                        fcr=f["fcr"])
+    if (code.k, code.genpoly) != (f["k"], f["genpoly"]):
+        raise ValueError(f"fields {f} disagree with the RS code of m="
+                         f"{f['m']}, t={f['t']}, n={f['n']}, fcr={f['fcr']}")
+    return code
+
+
+def crc_spec_from_fields(d, name=None):
+    """A port :class:`~commpy_tpu_torch.ops.crc.CrcSpec` from ``{poly,
+    init, xorout}`` (read off a JAX package ``CrcSpec``).
+
+    ``poly`` must be MSB-first 0/1 coefficients with a leading and a
+    constant term, and ``init``/``xorout`` must fit its width.  With
+    ``name`` the poly must be the port's named one: a JAX package crc24c
+    spec is refused, since the port's crc24c is the 3GPP polynomial (see
+    ``ops/crc.py``).  Raises ``ValueError`` otherwise.
+    """
+    from .ops.crc import CRC_POLYNOMIALS, CrcSpec
+
+    f = _fields(d, ("poly", "init", "xorout"))
+    poly = f["poly"]
+    r = len(poly) - 1
+    if r < 1 or set(poly) - {0, 1} or poly[0] != 1 or poly[-1] != 1:
+        raise ValueError(f"poly {poly} is not a CRC generator (0/1, "
+                         "leading and constant terms set)")
+    if not (0 <= f["init"] < 1 << r and 0 <= f["xorout"] < 1 << r):
+        raise ValueError(f"init/xorout do not fit {r} bits")
+    if name is not None and CRC_POLYNOMIALS[name] != poly:
+        raise ValueError(f"poly {poly} is not the port's {name} "
+                         f"{CRC_POLYNOMIALS[name]}")
+    return CrcSpec(poly=poly, init=f["init"], xorout=f["xorout"])

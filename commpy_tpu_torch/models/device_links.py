@@ -30,12 +30,21 @@ from torch.profiler import record_function
 
 from ..ops import modem as M
 from ..ops import ofdm as OFDM
+from ..ops.bch import (bch_construct, make_bch_chase_decoder,
+                       make_bch_decoder, make_bch_encoder)
 from ..ops.channel import crandn, snr_to_noise_std
 from ..ops.convcode import depuncture_device, encode_scan, puncture_mask
+from ..ops.dvbs2 import dvbs2_decode_device, dvbs2_encode_device
+from ..ops.equalize import (_conv_matrix, equalize, equalizer_delay,
+                            mmse_fir_taps)
+from ..ops.filters import rrcosfilter
+from ..ops.fir import fir_filter, upfirdn
 from ..ops.impairments import add_frequency_offset
 from ..ops.ldpc import build_matrix, ldpc_bp_decode_device, ldpc_encode_device
 from ..ops.mimo import best_first_device, kbest_device
 from ..ops.qcldpc import qc_bp_decode_device, qc_encoder
+from ..ops.rs import (_bits_to_sym, _sym_to_bits, make_rs_decoder,
+                      make_rs_encoder, make_rs_gmd_decoder)
 from ..ops.scramble import descramble, scramble
 from ..ops.sync import cfo_correct, cfo_estimate_cp
 from ..ops.trellis import Trellis
@@ -44,8 +53,10 @@ from ..ops.viterbi import viterbi_decode_device
 from ..utils.device import device_constant, on_device, resolve_device
 from ..utils.linalg import small_matmul
 
-__all__ = ["DeviceLink", "make_conv_awgn_link", "make_turbo_awgn_link",
-           "make_qcldpc_awgn_link", "make_ofdm_qcldpc_link",
+__all__ = ["DeviceLink", "make_conv_awgn_link", "make_rrc_conv_awgn_link",
+           "make_turbo_awgn_link", "make_qcldpc_awgn_link",
+           "make_ofdm_qcldpc_link", "make_dvbs2_concat_link",
+           "make_isi_conv_link", "make_bch_awgn_link", "make_rs_awgn_link",
            "make_ldpc_rayleigh_link", "make_kbest_mimo_link",
            "make_bestfirst_ldpc_mimo_link", "make_ofdm_mimo_conv_link"]
 
@@ -771,3 +782,327 @@ def make_ofdm_qcldpc_link(
                         "n_ofdm_symbols": n_ofdm, "csi": csi, "cfo": cfo},
                        (T,), (n_taps,),
                        float(np.sqrt(np.float32(0.5 / n_taps))))
+
+
+def make_rrc_conv_awgn_link(
+    *,
+    trellis: Trellis,
+    modulation_m: int = 16,
+    frame_bits: int = 1200,
+    sps: int = 4,
+    rrc_span_symbols: int = 8,
+    rrc_alpha: float = 0.35,
+    decoding_type: str = "soft",
+    use_maxlog: bool = True,
+    name: str = "rrc-conv-awgn",
+    device="cuda",
+) -> DeviceLink:
+    """Waveform-level conv-coded link: bits -> conv encode -> QAM ->
+    upsample x ``sps`` + RRC pulse shaping (polyphase) -> complex AWGN at
+    the sample rate -> matched filter -> symbol-spaced sampling -> LLR
+    demapping (max-log by default) -> soft Viterbi (K1/K2 on the card).
+
+    The RRC taps have unit energy, so the matched-filter cascade is
+    ISI-free Nyquist with unity gain and the symbol-level SNR calibration
+    is the symbol-rate link's.  An even tap count puts the filter peak on
+    a sample, so the cascade delay is ``n_taps`` samples.  The noise is
+    ``[F, (n_sym-1)*sps + n_taps]``; the matched filter and the sampling
+    run in the ``link.demodulate`` span.
+    """
+    dev = resolve_device(device)
+    const, Es, bps = _constellation(modulation_m, False)
+    k, n = trellis.k, trellis.n
+    rate = k / n
+    n_coded = frame_bits * n // k
+    if n_coded % bps:
+        raise ValueError("frame size must fill whole symbols")
+    n_sym = n_coded // bps
+    tb_depth = min(5 * trellis.total_memory, frame_bits)
+    n_taps = sps * rrc_span_symbols
+    _, taps = rrcosfilter(n_taps, rrc_alpha, 1.0, float(sps))
+    taps = (taps / np.sqrt(np.sum(taps ** 2))).astype(np.float32)
+    delay = n_taps  # transmit filter + matched filter group delay
+    demod = M.demodulate_maxlog if use_maxlog else M.demodulate_soft
+
+    def receive(bits, noise, noise_std):
+        taps_d = device_constant(taps, dev)
+        with record_function("link.encode"):
+            coded, _ = encode_scan(bits, trellis, device=dev)
+        with record_function("link.modulate_channel"):
+            symbols = M.modulate(coded, const, bps, device=dev)
+            wave = upfirdn(symbols, taps_d, up=sps, device=dev)
+            y = _noisy(wave, noise, noise_std)
+        with record_function("link.demodulate"):
+            mf = fir_filter(y, taps_d, "full", device=dev)
+            sampled = mf[:, delay:delay + n_sym * sps:sps]
+            ns = np.float32(noise_std)
+            return demod(sampled, const, bps, ns * ns)
+
+    def decode(llr):
+        with record_function("link.viterbi"):
+            return viterbi_decode_device(llr, trellis, tb_depth,
+                                         decoding_type, L=frame_bits,
+                                         device=dev)
+
+    return _link_parts(
+        name, dev, receive, decode, frame_bits,
+        lambda snr_db: snr_to_noise_std(snr_db, code_rate=rate, Es=Es),
+        {"rate": rate, "Es": Es, "bps": bps, "sps": sps, "trellis": trellis,
+         "decoding_type": decoding_type}, ((n_sym - 1) * sps + n_taps,))
+
+
+def make_isi_conv_link(
+    *,
+    trellis: Trellis,
+    channel_taps,
+    n_eq_taps: int = 21,
+    modulation_m: int = 4,
+    frame_bits: int = 1000,
+    tb_depth: Optional[int] = None,
+    name: str = "isi-conv-awgn",
+    device="cuda",
+) -> DeviceLink:
+    """Conv-coded PSK link over a static frequency-selective (ISI)
+    channel with MMSE linear equalization.
+
+    bits -> conv encode -> PSK -> channel convolution + AWGN -> MMSE FIR
+    equalizer (taps designed for the step's noise level) -> exact-LLR
+    demapping with the Wiener MSE (residual ISI + enhanced noise) as the
+    noise variance -> soft Viterbi (K1/K2 on the card).
+    """
+    dev = resolve_device(device)
+    h_np = np.asarray(channel_taps, np.complex64)
+    h_energy = float(np.sum(np.abs(h_np) ** 2))
+    const, Es, bps = _constellation(modulation_m, True)
+    k, n = trellis.k, trellis.n
+    n_coded = frame_bits * n // k
+    if n_coded % bps:
+        raise ValueError("frame size must fill whole symbols")
+    n_sym = n_coded // bps
+    rate = k / n
+    if tb_depth is None:
+        tb_depth = min(5 * trellis.total_memory, frame_bits)
+    delay = equalizer_delay(n_eq_taps, len(h_np))
+
+    def receive(bits, noise, noise_std):
+        h = device_constant(h_np, dev)
+        with record_function("link.encode"):
+            coded, _ = encode_scan(bits, trellis, device=dev)
+        with record_function("link.modulate_channel"):
+            symbols = M.modulate(coded, const, bps, device=dev)
+            rx = fir_filter(symbols, h, "full", device=dev)[..., :n_sym]
+            y = _noisy(rx, noise, noise_std)
+        with record_function("link.equalize"):
+            # MMSE design at this noise level (PSK symbols have unit
+            # power; noise_var is the complex variance)
+            ns = np.float32(noise_std)
+            noise_var = ns * ns
+            w = mmse_fir_taps(h, float(noise_var), n_eq_taps, device=dev)
+            z = equalize(y, w, delay, device=dev)
+            # post-equalizer error variance = the Wiener MSE,
+            # 1 - Re(sum(p * w)) with u = conj(w)
+            pvec = _conv_matrix(h, n_eq_taps)[:, delay]
+            mse = 1.0 - torch.sum(pvec * w).real
+            mse = torch.clamp_min(mse, float(noise_var * np.float32(1e-2)))
+        with record_function("link.demodulate"):
+            return M.demodulate_soft(z, const, bps, mse.reshape(1))
+
+    def decode(llr):
+        with record_function("link.viterbi"):
+            return viterbi_decode_device(llr, trellis, tb_depth, "soft",
+                                         L=frame_bits, device=dev)
+
+    def noise_std_fn(snr_db):
+        # the channel's gain counts into Es
+        return snr_to_noise_std(snr_db, code_rate=rate, Es=Es * h_energy)
+
+    return _link_parts(
+        name, dev, receive, decode, frame_bits, noise_std_fn,
+        {"rate": rate, "Es": Es, "bps": bps, "channel_taps": h_np,
+         "n_eq_taps": n_eq_taps, "trellis": trellis,
+         "decoding_type": "soft"}, (n_sym,))
+
+
+def make_bch_awgn_link(
+    *,
+    code,
+    modulation_m: int = 2,
+    use_psk: bool = True,
+    decoder: str = "hard",
+    chase_p: int = 4,
+    name: str = "bch-awgn",
+    device="cuda",
+) -> DeviceLink:
+    """BCH link over complex AWGN: bits -> systematic BCH -> PSK/QAM ->
+    AWGN -> demapping -> BCH decode -> payload bit errors.
+
+    ``decoder='hard'``: minimum-distance demapping and hard decoding;
+    ``'chase'``: exact-LLR magnitudes as bit reliabilities into Chase-2
+    soft decoding (2^chase_p patterns).  ``receive`` returns the hard
+    bits, or the LLRs (positive => bit 1) for Chase.
+    """
+    if decoder not in ("hard", "chase"):
+        raise ValueError(f"decoder must be 'hard' or 'chase', got "
+                         f"{decoder!r}")
+    dev = resolve_device(device)
+    const, Es, bps = _constellation(modulation_m, use_psk)
+    if code.n % bps:
+        raise ValueError(f"n={code.n} must fill whole {bps}-bit symbols")
+    rate = code.k / code.n
+    encode = make_bch_encoder(code, dev)
+    hard_dec = make_bch_decoder(code, device=dev)
+    if decoder == "chase":
+        chase = make_bch_chase_decoder(code, p=chase_p, device=dev)
+
+    def receive(bits, noise, noise_std):
+        with record_function("link.encode"):
+            cw = encode(bits)
+        with record_function("link.modulate_channel"):
+            y = _noisy(M.modulate(cw, const, bps, device=dev), noise,
+                       noise_std)
+        with record_function("link.demodulate"):
+            if decoder == "chase":
+                ns = np.float32(noise_std)
+                return M.demodulate_soft(y, const, bps, ns * ns)
+            return M.demodulate_hard(y, const, bps)
+
+    def decode(rx):
+        with record_function("link.bch_decode"):
+            if decoder == "chase":
+                corrected, _, _ = chase((rx > 0).to(torch.int8),
+                                        torch.abs(rx))
+            else:
+                corrected, _, _ = hard_dec(rx)
+            return corrected[:, :code.k]
+
+    return _link_parts(
+        name, dev, receive, decode, code.k,
+        lambda snr_db: snr_to_noise_std(snr_db, code_rate=rate, Es=Es),
+        {"rate": rate, "Es": Es, "bps": bps, "decoder": decoder},
+        (code.n // bps,))
+
+
+def make_rs_awgn_link(
+    *,
+    code,
+    modulation_m: Optional[int] = None,
+    decoder: str = "hard",
+    name: str = "rs-awgn",
+    device="cuda",
+) -> DeviceLink:
+    """Reed-Solomon link over complex AWGN.
+
+    One QAM symbol per RS symbol by default (order 2^m, e.g. 256-QAM for
+    GF(2^8)): message bits -> symbols (LSB-first, the codec's order) ->
+    RS encode -> QAM -> AWGN -> demapping -> RS decode -> message bits.
+    ``decoder='gmd'`` drives GMD soft decoding with each symbol's
+    minimum |LLR| as its reliability (designed for informative
+    reliabilities; on plain AWGN 'hard' does better).  ``receive``
+    returns the hard bits, or the LLRs (positive => bit 1) for GMD.
+    """
+    if decoder not in ("hard", "gmd"):
+        raise ValueError(f"decoder must be 'hard' or 'gmd', got "
+                         f"{decoder!r}")
+    dev = resolve_device(device)
+    m = code.m
+    if modulation_m is None:
+        modulation_m = 1 << m
+    const, Es, bps = _constellation(modulation_m, False)
+    if (code.n * m) % bps:
+        raise ValueError(
+            f"n*m={code.n * m} coded bits must fill whole {bps}-bit "
+            f"symbols")
+    rate = code.k / code.n
+    encode = make_rs_encoder(code, dev)
+    hard_dec = make_rs_decoder(code, device=dev)
+    if decoder == "gmd":
+        gmd = make_rs_gmd_decoder(code, device=dev)
+
+    def receive(bits, noise, noise_std):
+        F = bits.shape[0]
+        with record_function("link.encode"):
+            msg = _bits_to_sym(on_device(bits, dev).reshape(F, code.k, m),
+                               m)
+            cw_bits = _sym_to_bits(encode(msg), m).reshape(F, -1)
+        with record_function("link.modulate_channel"):
+            y = _noisy(M.modulate(cw_bits.to(torch.int8), const, bps,
+                                  device=dev), noise, noise_std)
+        with record_function("link.demodulate"):
+            if decoder == "gmd":
+                ns = np.float32(noise_std)
+                return M.demodulate_soft(y, const, bps, ns * ns)
+            return M.demodulate_hard(y, const, bps)
+
+    def decode(rx):
+        F = rx.shape[0]
+        with record_function("link.rs_decode"):
+            rx_syms = _bits_to_sym((rx > 0).reshape(F, code.n, m), m)
+            if decoder == "gmd":
+                rel = torch.amin(torch.abs(rx).reshape(F, code.n, m), dim=-1)
+                corrected, _, _ = gmd(rx_syms, rel)
+            else:
+                corrected, _, _ = hard_dec(rx_syms)
+            return _sym_to_bits(corrected[:, :code.k], m).reshape(
+                F, -1).to(torch.int8)
+
+    return _link_parts(
+        name, dev, receive, decode, code.k * m,
+        lambda snr_db: snr_to_noise_std(snr_db, code_rate=rate, Es=Es),
+        {"rate": rate, "Es": Es, "bps": bps, "decoder": decoder},
+        (code.n * m // bps,))
+
+
+def make_dvbs2_concat_link(
+    *,
+    qc_params: dict,
+    t_bch: int = 12,
+    modulation_m: int = 4,
+    n_iterations: int = 30,
+    name: str = "dvbs2-concat",
+    device="cuda",
+) -> DeviceLink:
+    """The DVB-S2 concatenation: BCH outer code, LDPC inner code.
+
+    payload -> shortened GF(2^16) t-error BCH -> DVB-S2 LDPC
+    (:func:`~commpy_tpu_torch.ops.dvbs2.dvbs2_encode_device`) -> PSK ->
+    AWGN -> layered MSA BP (``msa_scale=0.75``; the streamed kernel K5 on
+    the card) -> bit-sliced BCH hard decode -> payload bit errors.  The
+    LDPC convention holds: a positive LLR means bit 0.
+    """
+    dev = resolve_device(device)
+    kldpc = qc_params["k_bits"]
+    outer = bch_construct(16, t_bch, shorten=(1 << 16) - 1 - kldpc)
+    if outer.n != kldpc:
+        raise ValueError(f"the BCH code's n={outer.n} is not the LDPC "
+                         f"code's k={kldpc}")
+    const, Es, bps = _constellation(modulation_m, True)
+    n_ldpc = qc_params["n_vnodes"]
+    if n_ldpc % bps:
+        raise ValueError(f"n={n_ldpc} must fill whole {bps}-bit symbols")
+    rate = outer.k / n_ldpc
+    enc_bch = make_bch_encoder(outer, dev)
+    dec_bch = make_bch_decoder(outer, device=dev)
+
+    def receive(bits, noise, noise_std):
+        with record_function("link.encode"):
+            cw = dvbs2_encode_device(enc_bch(bits), qc_params, device=dev)
+        with record_function("link.modulate_channel"):
+            y = _noisy(M.modulate(cw, const, bps, device=dev), noise,
+                       noise_std)
+        with record_function("link.demodulate"):
+            ns = np.float32(noise_std)
+            return -M.demodulate_soft(y, const, bps, ns * ns)
+
+    def decode(llr):
+        with record_function("link.ldpc_decode"):
+            dec, _ = dvbs2_decode_device(llr, qc_params, "MSA", n_iterations,
+                                         msa_scale=0.75, device=dev)
+        with record_function("link.bch_decode"):
+            corrected, _, _ = dec_bch(dec[:, :kldpc].to(torch.int8))
+            return corrected[:, :outer.k]
+
+    return _link_parts(
+        name, dev, receive, decode, outer.k,
+        lambda snr_db: snr_to_noise_std(snr_db, code_rate=rate, Es=Es),
+        {"rate": rate, "Es": Es, "bps": bps, "t_bch": t_bch,
+         "outer": outer}, (n_ldpc // bps,))

@@ -1,11 +1,20 @@
 """Tensor operations: trellis, convolutional encoder, modem, channel,
 scrambler, Viterbi decoder, the LDPC family (dense, QC, DVB-S2, NR),
-interleavers, turbo codes, MIMO detection, OFDM, synchronization and RF
-impairments."""
+interleavers, turbo codes, MIMO detection, OFDM, synchronization, RF
+impairments, single-carrier DSP (filters, sequences, FIR, equalizers) and
+the algebraic codes (GF(2^m), BCH, RS, CRC, turbo product codes)."""
 from . import (
+    algebraic,
+    bch,
     channel,
     convcode,
+    crc,
     dvbs2,
+    equalize,
+    filters,
+    fir,
+    galois,
+    gf2m,
     impairments,
     interleave,
     ldpc,
@@ -14,8 +23,11 @@ from . import (
     nrldpc,
     ofdm,
     qcldpc,
+    rs,
     scramble,
+    sequences,
     sync,
+    tpc,
     trellis,
     turbo,
     viterbi,
@@ -24,8 +36,9 @@ from .trellis import Trellis
 from .viterbi import viterbi_decode, viterbi_decode_device
 
 __all__ = [
-    "channel", "convcode", "dvbs2", "impairments", "interleave", "ldpc",
-    "mimo", "modem", "nrldpc", "ofdm", "qcldpc", "scramble", "sync",
-    "trellis", "turbo", "viterbi", "Trellis", "viterbi_decode",
-    "viterbi_decode_device",
+    "algebraic", "bch", "channel", "convcode", "crc", "dvbs2", "equalize",
+    "filters", "fir", "galois", "gf2m", "impairments", "interleave", "ldpc",
+    "mimo", "modem", "nrldpc", "ofdm", "qcldpc", "rs", "scramble",
+    "sequences", "sync", "tpc", "trellis", "turbo", "viterbi", "Trellis",
+    "viterbi_decode", "viterbi_decode_device",
 ]
