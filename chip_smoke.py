@@ -125,6 +125,24 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (16200, 1/2) QPSK MSA-30 concatenation at F=512, clean at 5 dB and
    erring at 1 dB, K5 on a step's own LLRs at 5 and 1 dB against its
    plain version bit for bit, and the LDPC and BCH stages timed apart;
+13. (run after 12) Paths M-O: M, the polar (1024, 512) CRC-11 QPSK
+   SCL-8 link (the decoder specialised to the frozen mask) at F=512
+   through ``montecarlo_ber`` at Eb/N0 2 dB, clean at 6 dB, erring at
+   -1 dB, with fewer frame errors than SC on the plain code on the same
+   draws at 2 dB, one-path SCL (scan and unrolled) decoding as SC, the SC
+   (B=2048), scan SCL-8 (B=256) and unrolled SCL-8 (B=1024) decoders at
+   the JAX bench's batches (CUDA events), each decoding a B=16 batch on
+   the card as on the host (every output); N, the IDD K-best(16) WiMAX
+   (1440, 720) MSA-15 link (one exchange) at F=512, its BER at 17/18/19
+   dB within rtol 2 of (1.7e-1, 1e-1, 2.5e-3) and at most 1.5x each, K4
+   launched twice a step and held to its plain version on the LLRs the
+   loop hands its decoder and its decision; O, the CommPy-compatible API:
+   ``Wifi80211(4).link_performance`` over a ``SISOFlatChannel`` at 12 dB
+   (K1/K2 counted) within 25% of the batched MCS-4 link's BER at the same
+   noise_std, one ``channelcoding.turbo_decode`` (K3) equal to the torch
+   route's bits, ``LinkModel.link_performance_device`` for uncoded QPSK
+   within rtol 0.25 of erfc, and the host loops' time a chunk;
+   each link timed and profiled;
 
 With ``--ab DIR`` (a checkout of another commit, e.g. the parent unpacked
 with ``git archive``), it also loads that checkout's ``commpy_tpu_torch``
@@ -458,6 +476,21 @@ def _device_us(event, name):
                    getattr(event, f"{name}cuda_time_total", 0)) or 0
 
 
+def device_launches(torch, fn):
+    """Kernels one call of ``fn`` runs on the device (torch.profiler), or
+    "not measured" where the profile holds none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and not e.key.startswith("link.") and _device_us(e, "self_") > 0)
+    return n or "not measured"
+
+
 def profile_link_step(torch, link, gen, noise_std, step_s, steps=2,
                       frames=2048, label="MCS-4"):
     """Device time of each kernel and of each ``link.<stage>`` span over
@@ -491,11 +524,13 @@ def profile_link_step(torch, link, gen, noise_std, step_s, steps=2,
                          us / steps / 1e3, "calls_per_step": e.count / steps})
     rows.sort(key=lambda row: -row["ms_per_step"])
     busy_ms = sum(row["ms_per_step"] for row in rows)
+    launches = sum(row["calls_per_step"] for row in rows)
     out = {"device_busy_ms_per_step": busy_ms,
            "step_ms": step_s * 1e3,
            "device_idle_share": (1 - busy_ms / (step_s * 1e3)
                                  if busy_ms else "not measured"),
            "stages_device_ms_per_step": stages,
+           "device_launches_per_step": launches,
            "kernels": rows[:25],
            "kernel_names": [row["kernel"] for row in rows]}
     top = ", ".join(f"{row['kernel'][:40]} {row['ms_per_step']:.3f}"
@@ -503,8 +538,8 @@ def profile_link_step(torch, link, gen, noise_std, step_s, steps=2,
     split = ", ".join(f"{k} {v.get('device_span_ms', float('nan')):.3f}"
                       for k, v in stages.items())
     print(f"{label} link step profile: device busy {busy_ms:.3f} ms of "
-          f"{step_s * 1e3:.3f} ms; stages (device span ms): {split}; top "
-          f"kernels: {top}", flush=True)
+          f"{step_s * 1e3:.3f} ms in {launches:.0f} launches; stages (device "
+          f"span ms): {split}; top kernels: {top}", flush=True)
     return out
 
 
@@ -1495,17 +1530,29 @@ def viterbi_on_link(torch, link, snr_db, seed, label, k7):
     """K1 and K2 against their plain versions on a link's own LLRs (its
     receive chain at ``snr_db``, F=2048), and the whole decode by the
     kernel route against the plain route."""
+    _, rx = link_receive(torch, link, 2048, snr_db, seed)
+    return viterbi_parity(torch, rx, k7, link.frame_bits, 30, label)
+
+
+def viterbi_parity(torch, rx, trellis, L, tb_depth, label, decoded=None):
+    """K1 and K2 against their plain versions on soft decoder input ``rx``
+    [B, n L / k] (made into kernel input by the decoder's own
+    ``received_words``), and the whole decode against the plain route:
+    ``decoded`` (the bits a path decoded), or else the kernel route's.
+    Fails on any mismatch."""
     from commpy_tpu_torch.ops.viterbi import (received_words,
                                               viterbi_decode_device)
 
-    _, rx = link_receive(torch, link, 2048, snr_db, seed)
     tallies = {"acs_forward": Tally(), "traceback": Tally()}
-    compare_case(torch, tallies, k7, "soft", 2048, link.frame_bits, 30, 0,
-                 r=received_words(rx, k7, "soft", link.frame_bits))
-    kern = viterbi_decode_device(rx, k7, 30, "soft", L=link.frame_bits)
-    plain = viterbi_decode_device(rx, k7, 30, "soft", L=link.frame_bits,
+    compare_case(torch, tallies, trellis, "soft", rx.shape[0], L, tb_depth,
+                 0, r=received_words(rx, trellis, "soft", L))
+    plain = viterbi_decode_device(rx, trellis, tb_depth, "soft", L=L,
                                   backend="torch")
-    tallies["traceback"].add(kern, plain)
+    if decoded is None:
+        decoded = viterbi_decode_device(rx, trellis, tb_depth, "soft", L=L)
+    tallies["traceback"].add(
+        torch.as_tensor(decoded, dtype=plain.dtype, device=plain.device),
+        plain)
     for name, t in tallies.items():
         if t.mismatches:
             fail(f"{label}: {name} disagrees with its plain version on the "
@@ -1808,6 +1855,380 @@ def dsp_code_paths(torch, report, k7):
     require_kernels(out["path_l"]["timing"], "Path L",
                     ["qc_bp_streamed_kernel"])
     report.update(out)
+    return launches
+
+
+def polar_path(torch, report):
+    """Path M: polar codes at the JAX bench's configuration
+    (``benchmarks/bench_all.py:297-341``), N=1024, K=512, design Es/N0
+    2 dB, with and without CRC-11.  The QPSK SCL-8 + CRC-11 link at F=512
+    through ``montecarlo_ber`` at Eb/N0 2 dB; its physics (clean at Eb/N0
+    6 dB, errors at -1 dB, fewer frame errors than SC on the same draws at 2 dB,
+    SCL with one path decoding as SC); the SC, scan SCL and unrolled SCL
+    decoders at the bench's batches (CUDA events), each decoding a B=16
+    batch on the card as on the host CPU (full outputs); the link step's
+    profile.  Polar has no kernel: nothing of K1-K5 runs here."""
+    from commpy_tpu_torch.models import make_polar_awgn_link
+    from commpy_tpu_torch.ops import polar as PP
+
+    dev = torch.device("cuda")
+    plain = PP.polar_construct(1024, 512, design_snr_db=2.0)
+    code = PP.polar_construct(1024, 512, crc="crc11", design_snr_db=2.0)
+    link = make_polar_awgn_link(code=code, decoder="scl", list_size=8,
+                                modulation_m=4)
+    sc_link = make_polar_awgn_link(code=plain, decoder="sc", modulation_m=4)
+    # the links' SNR is the JAX package's: Es/N0 = rate * snr, so with QPSK
+    # snr = Eb/N0 + 10 log10(2)
+    snr_2, snr_6, snr_m1 = (db + 10 * np.log10(2) for db in (2.0, 6.0, -1.0))
+    t0 = time.perf_counter()
+    res = mc(link, [snr_2], 90, 512, 2)
+    mc_s = time.perf_counter() - t0
+    e6 = step_errors(torch, link, 512, snr_6, 91)
+    em1 = step_errors(torch, link, 512, snr_m1, 92)
+    # the same payload bits and noise through both links (same shapes)
+    bits, llr_scl = link_receive(torch, link, 512, snr_2, 93)
+    bits_sc, llr_sc = link_receive(torch, sc_link, 512, snr_2, 93)
+    if not torch.equal(bits, bits_sc):
+        fail("Path M: the SC and SCL links drew different bits")
+    sc_dec = sc_link.decode(llr_sc)
+    fe_scl = int((link.decode(llr_scl) != bits).any(-1).sum())
+    fe_sc = int((sc_dec != bits).any(-1).sum())
+    list1 = {
+        "unrolled": PP.polar_scl_decode(plain, llr_sc, list_size=1),
+        "scan": PP.make_polar_scl_decoder(plain, list_size=1,
+                                          device=dev)(llr_sc)}
+    list1_differ = {k: int((v != sc_dec).sum()) for k, v in list1.items()}
+    out = {"ber_2db": float(res.bers[0]), "bits_sent": float(
+        res.bits_sent[0]), "rounds": res.rounds, "mc_s": mc_s,
+        "errs_6db": e6, "errs_m1db": em1,
+        "frame_errors_2db": {"scl8_crc11": fe_scl, "sc": fe_sc},
+        "list1_vs_sc_bits_differ": list1_differ}
+    print(f"Path M polar (1024, 512) QPSK SCL-8 + CRC-11, F=512: BER "
+          f"{res.bers[0]:.4e} at Eb/N0 2 dB ({res.rounds} steps, "
+          f"{mc_s:.1f} s); errors {e6} at Eb/N0 6 dB, {em1} at -1 dB; frame "
+          f"errors at 2 dB on the same draws SCL-8 + CRC-11 {fe_scl}, SC {fe_sc}; "
+          f"SCL with one path vs SC bits differ {list1_differ}", flush=True)
+    if not e6 == 0 < em1 or em1 < 0.01 * 512 * 512:
+        fail(f"Path M: {e6} errors at 6 dB, {em1} at -1 dB")
+    if not fe_scl < fe_sc:
+        fail(f"Path M: SCL-8 + CRC-11 frame errors {fe_scl}, SC {fe_sc}")
+    if any(list1_differ.values()):
+        fail(f"Path M: SCL with one path differs from SC {list1_differ}")
+    # the decoders at the JAX bench's batches, randn * 3 LLRs
+    rng = np.random.RandomState(94)
+    rows = {}
+    for key, cd, B, make in (
+            ("sc_b2048", plain, 2048,
+             lambda d, **kw: PP.make_polar_sc_decoder(plain, device=d, **kw)),
+            ("scl8_crc11_scan_b256", code, 256,
+             lambda d, **kw: PP.make_polar_scl_decoder(
+                 code, list_size=8, device=d, **kw)),
+            ("scl8_crc11_unrolled_b1024", code, 1024,
+             lambda d, **kw: PP.make_polar_scl_decoder_unrolled(
+                 code, list_size=8, device=d, **kw))):
+        x = torch.as_tensor(rng.randn(B, 1024).astype(np.float32) * 3,
+                            device=dev)
+        dec = make(dev)
+        t0 = time.perf_counter()
+        dec(x)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        ms = cuda_ms(torch, lambda: dec(x), 2)
+        card = make(dev, full=True)(x[:16])
+        host = make("cpu", full=True)(x[:16].cpu())
+        card = card if isinstance(card, tuple) else (card,)
+        host = host if isinstance(host, tuple) else (host,)
+        differ = sum(int((a.cpu() != b).sum()) for a, b in zip(card, host))
+        rows[key] = {"B": B, "ms": ms, "first_call_s": first_s,
+                     "info_bits_per_s": B * 512 / (ms * 1e-3),
+                     "card_vs_host_b16_values_differ": differ}
+        print(f"Path M decoder {key}: {ms:.2f} ms a call (CUDA events), "
+              f"{B * 512 / (ms * 1e-3):.4g} info bits/s; card vs host on "
+              f"B=16, full outputs: {differ} values differ", flush=True)
+        if differ:
+            fail(f"Path M: {key} decodes differently on the card and the "
+                 "host")
+    out["decoders"] = rows
+    # SC's block size at B=2048: the same decisions at every size; the
+    # decode is host-paced, so each size is timed once a round over 8
+    # rounds in turns (the order reversed every other round), and its
+    # launches are counted from one profiled decode
+    x = torch.as_tensor(rng.randn(2048, 1024).astype(np.float32) * 3,
+                        device=dev)
+    want = PP.make_polar_sc_decoder(plain, device=dev)(x)
+    sizes = (5, 6, 7, 8, 9, 10)
+    decs = {be: PP.make_polar_sc_decoder(plain, block_exp=be, device=dev)
+            for be in sizes}
+    for be, dec in decs.items():
+        if not torch.equal(dec(x), want):
+            fail(f"Path M: SC with block_exp {be} decodes differently")
+    runs = {be: [] for be in sizes}
+    for r in range(8):
+        for be in (sizes if r % 2 == 0 else sizes[::-1]):
+            runs[be].append(cuda_ms(torch, lambda: decs[be](x), 1, 0))
+    sweep = {be: {"median_ms": float(np.median(v)), "min_ms": min(v),
+                  "max_ms": max(v),
+                  "launches": device_launches(torch, lambda: decs[be](x))}
+             for be, v in runs.items()}
+    out["sc_b2048_block_exp"] = sweep
+    print(f"Path M SC B=2048 by block_exp (median [min - max] ms a call of "
+          f"8 in turns, CUDA events; launches a decode; default "
+          f"{PP.SC_BLOCK_EXP}): " + ", ".join(
+              f"{be}: {v['median_ms']:.2f} [{v['min_ms']:.2f} - "
+              f"{v['max_ms']:.2f}] {v['launches']}"
+              for be, v in sweep.items()), flush=True)
+    out["timing"] = time_link(torch, link, 512, snr_2, 95,
+                              "Path M polar SCL-8 + CRC-11")
+    report["path_m"] = out
+
+
+def idd_path(torch, report):
+    """Path N: the IDD K-best LDPC MIMO link at the reference's anchor
+    configuration (``tests/test_idd_parity.py:165-195``): WiMAX (1440,
+    720), 4x4 16-QAM, K-best(16) soft with priors, MSA-15, one exchange,
+    F=512 (46,080 vectors a step), through ``montecarlo_ber`` at 17, 18 and
+    19 dB with K4's count set to 0 just before and read just after (two
+    decodes a step); K4 on the LLRs the loop hands its decoder and its
+    decision, against its plain version; the step's profile.  Returns
+    {kernel: {path: launches}}."""
+    from commpy_tpu_torch.kernels import qc_bp as QK
+    from commpy_tpu_torch.models import (idd_decoder_device,
+                                         make_idd_kbest_ldpc_mimo_link)
+    from commpy_tpu_torch.ops import ldpc as L
+
+    wimax = L.get_ldpc_code_params(os.path.join(L.DESIGNS, "wimax",
+                                                "1440.720.txt"), True)
+    link = make_idd_kbest_ldpc_mimo_link(ldpc_params=wimax, beam=16, n_it=1)
+    snrs = [17.0, 18.0, 19.0]
+    QK.qc_bp_resident.launches = 0
+    res = mc(link, snrs, 100, 512, 2)
+    launches = QK.qc_bp_resident.launches
+    bers = [float(b) for b in res.bers]
+    desired = np.array([1.7e-1, 1e-1, 2.5e-3])
+    steps = res.rounds * len(snrs)
+    tally = QCTally()
+    bits, noise, h = link_draws(torch, link, 512, 101)
+    rx = link.receive(bits, noise, float(link.noise_std_fn(18.0)), h)
+    seen = []
+
+    def capture(fn):
+        def run(llrs):
+            seen.append(llrs)
+            return fn(llrs)
+        return run
+
+    ex = link.extras
+    idd_decoder_device(ex["detector"], capture(ex["decoder"]),
+                       capture(ex["decision"]), 1)(*rx)
+    for llrs in seen:
+        k4_on(torch, wimax["_qc_lift"], llrs.reshape(512, -1), tally)
+    out = {"bers": bers, "snrs_db": snrs, "reference": desired.tolist(),
+           "bits_sent": float(res.bits_sent[0]), "steps": steps,
+           "launches": launches,
+           "k4_on_loop_llrs": {"mismatches": tally.mismatches,
+                               "cases": tally.cases,
+                               "compared": tally.compared}}
+    print(f"Path N IDD K-best(16) + WiMAX LDPC MSA-15, n_it=1, F=512: BER "
+          f"{bers} at 17/18/19 dB (reference {desired.tolist()}, rtol 2, at "
+          f"most 1.5x); qc_bp_resident launches {launches} in {steps} "
+          f"steps; K4 on the loop's decoder and decision LLRs: "
+          f"{tally.mismatches} mismatches in {tally.cases} cases, "
+          f"{tally.compared} decisions", flush=True)
+    if not (np.all(np.abs(np.array(bers) - desired) <= 2 * desired)
+            and np.all(np.array(bers) <= 1.5 * desired)):
+        fail(f"Path N BER {bers} is off the reference curve")
+    if launches != 2 * steps:
+        fail(f"Path N launched qc_bp_resident {launches} times in {steps} "
+             "steps, not twice a step")
+    if tally.mismatches or len(seen) != 2:
+        fail(f"Path N: K4 disagrees with its plain version on the loop's "
+             f"LLRs ({tally.mismatches} of {tally.compared})")
+    out["timing"] = time_link(torch, link, 512, 18.0, 102,
+                              "Path N IDD K-best LDPC MIMO")
+    require_kernels(out["timing"], "Path N", ["qc_bp_resident_kernel"])
+    report["path_n"] = out
+    return {"qc_bp_resident": {"N": launches}}
+
+
+def api_path(torch, report):
+    """Path O: the CommPy-compatible API on the card.  ``Wifi80211(4)``'s
+    host loop over a ``SISOFlatChannel`` at 12 dB (1200-bit chunks until
+    2,000 bit errors or 400 chunks) against the batched 802.11 link's
+    MCS-4 BER at the same noise_std, with K1/K2's counts, and K1/K2
+    against their plain versions on the depunctured LLRs of its first
+    chunks (B=1, the decoder's own tb_depth), each chunk's decoded bits
+    against the plain route's; one ``channelcoding.turbo_decode`` call
+    (K3) against the torch route's bits, and each of its K3 calls' outputs
+    against the plain version on that call's inputs;
+    ``LinkModel.link_performance_device`` for uncoded QPSK against
+    ``erfc(sqrt(snr/2))/2``; the host loops' time a chunk.
+    Returns {kernel: {path: launches}}."""
+    import commpy_tpu_torch.channelcoding as CC
+    from commpy_tpu_torch.channelcoding import convcode as CCV
+    from commpy_tpu_torch.channels import SISOFlatChannel
+    from commpy_tpu_torch.kernels import bcjr as BK
+    from commpy_tpu_torch.kernels import viterbi_acs as K
+    from commpy_tpu_torch.links import LinkModel
+    from commpy_tpu_torch.models import wifi80211_device_link
+    from commpy_tpu_torch.ops import modem as M
+    from commpy_tpu_torch.ops import turbo as TU
+    from commpy_tpu_torch.ops.turbo import turbo_decode_device
+    from commpy_tpu_torch.utils.device import on_device
+    from commpy_tpu_torch.wifi80211 import Wifi80211
+    from scipy.special import erfc
+
+    launches = {"acs_forward": {}, "traceback": {}, "bcjr_appdiff": {}}
+    np.random.seed(110)
+    channel = SISOFlatChannel(fading_param=(1 + 0j, 0))
+    # the first chunks' decoder inputs and decoded bits, as the host loop
+    # hands them to the compatible viterbi_decode
+    seen, vd = [], CCV.viterbi_decode
+
+    def capture(msg_d, trellis, *args, **kw):
+        out = vd(msg_d, trellis, *args, **kw)
+        if len(seen) < 8:
+            seen.append((msg_d, trellis, out))
+        return out
+
+    K.acs_forward.launches = K.traceback.launches = 0
+    CCV.viterbi_decode = capture
+    try:
+        t0 = time.perf_counter()
+        BERs, BEs, _, NCs = Wifi80211(4).link_performance(
+            channel, [12.0], 400, 2000, send_chunk=1200)
+        wifi_s = time.perf_counter() - t0
+    finally:
+        CCV.viterbi_decode = vd
+    chunks = int(NCs.sum())
+    errs = int(BEs.sum())
+    for kern in (K.acs_forward, K.traceback):
+        launches[kern.__name__]["O"] = kern.launches
+        if not kern.launches:
+            fail(f"Path O never launched {kern.__name__}")
+    # K1/K2 on those chunks at the path's shape (B=1, tb_depth as the
+    # decoder sets it), and each chunk's bits against the plain route
+    k12 = {"acs_forward": [0, 0], "traceback": [0, 0]}
+    for msg_d, trellis, out in seen:
+        rx = on_device(np.asarray(msg_d, dtype=float), "cuda")[None]
+        L = rx.shape[-1] * trellis.k // trellis.n
+        got = viterbi_parity(torch, rx, trellis, L,
+                             min(5 * trellis.total_memory, L),
+                             "Path O", decoded=out[None])
+        for name, (bad, n) in got.items():
+            k12[name][0] += bad
+            k12[name][1] += n
+    if len(seen) < 8:
+        fail(f"Path O decoded {len(seen)} chunks, fewer than the 8 compared")
+    dl = wifi80211_device_link(4, frame_bits=1200)
+    ns_dl = float(dl.noise_std_fn(12.0))
+    res = mc(dl, [12.0], 111, 2048, 2)
+    ratio = float(BERs[0] / res.bers[0])
+    wifi = {"ber": float(BERs[0]), "bit_errors": errs, "chunks": chunks,
+            "chunk_bits": 1200, "s": wifi_s, "ms_per_chunk":
+            wifi_s / chunks * 1e3, "noise_std": float(channel.noise_std),
+            "device_link_noise_std": ns_dl,
+            "device_link_ber": float(res.bers[0]),
+            "device_link_bits": float(res.bits_sent[0]), "ratio": ratio,
+            "launches": {k: v["O"] for k, v in launches.items() if v},
+            "k1_k2_on_chunks": {"chunks": len(seen), **{
+                k: {"mismatches": v[0], "compared": v[1]}
+                for k, v in k12.items()}}}
+    print(f"Path O Wifi80211(4).link_performance at 12 dB: BER "
+          f"{BERs[0]:.4e} ({errs} errors in {chunks} chunks of 1200 bits, "
+          f"{wifi['ms_per_chunk']:.2f} ms a chunk); batched MCS-4 link BER "
+          f"{res.bers[0]:.4e}, ratio {ratio:.3f}; noise_std "
+          f"{channel.noise_std:.9f} vs {ns_dl:.9f}; launches "
+          f"{wifi['launches']}; K1/K2 vs plain on {len(seen)} chunks' "
+          f"LLRs (B=1) and their decoded bits {wifi['k1_k2_on_chunks']}",
+          flush=True)
+    if abs(channel.noise_std - ns_dl) > 1e-6 * ns_dl:
+        fail(f"Path O: the SNR conventions give noise_std "
+             f"{channel.noise_std} and {ns_dl}")
+    if errs < 200 or abs(ratio - 1) > 0.25:
+        fail(f"Path O: compatible BER {BERs[0]} ({errs} errors) vs the "
+             f"batched link's {res.bers[0]}")
+    # one reference-compatible turbo decode on the card (K3)
+    # L=1024: the torch route it is held to walks the frame step by step
+    trt = rsc_trellises()[1][1]
+    il = CC.RandInterlv(1024, 0)
+    rng = np.random.RandomState(112)
+    msg = rng.randint(0, 2, 1024)
+    streams = CC.turbo_encode(msg, trt, trt, il)
+    nv = 1 / (2 * (1 / 3) * 10 ** (1.0 / 10))
+    ys = [2.0 * np.asarray(s[:1024], float) - 1.0
+          + rng.randn(1024) * np.sqrt(nv) for s in streams]
+    # each K3 call's inputs and output, as the decoder makes them
+    k3_calls, k3 = [], TU.bcjr_appdiff
+
+    def record(*args, **kw):
+        out = k3(*args, **kw)
+        k3_calls.append((args, kw, out))
+        return out
+
+    BK.bcjr_appdiff.launches = 0
+    TU.bcjr_appdiff = record
+    try:
+        t0 = time.perf_counter()
+        dec = CC.turbo_decode(*ys, trt, nv, 8, il)
+        turbo_s = time.perf_counter() - t0
+    finally:
+        TU.bcjr_appdiff = k3
+    launches["bcjr_appdiff"]["O"] = BK.bcjr_appdiff.launches
+    tally = K3Tally()
+    for args, kw, out in k3_calls:
+        exact = not kw.get("max_log") and kw.get("lse") in (None, "exact")
+        tally.add((out,), (BK.bcjr_appdiff_plain(*args, **kw),), exact)
+    plain = turbo_decode_device(*ys, trt, nv, 8, il.p_array,
+                                backend="torch").cpu().numpy()
+    turbo = {"differ": int((dec != plain).sum()),
+             "ber": float((dec != msg).mean()), "s": turbo_s,
+             "launches": launches["bcjr_appdiff"]["O"],
+             "k3_on_calls": {"calls": len(k3_calls), "cases": tally.cases,
+                             "mismatches": tally.mismatches,
+                             "bit_diffs": tally.bit_diffs,
+                             "compared": tally.compared,
+                             "max_abs_err": tally.max_abs_err}}
+    print(f"Path O channelcoding.turbo_decode L=1024, 8 iterations, Eb/N0 "
+          f"1.0 dB: {turbo}", flush=True)
+    if (turbo["differ"] or not turbo["launches"] or tally.mismatches
+            or len(k3_calls) != turbo["launches"]):
+        fail(f"Path O: turbo_decode on the card {turbo}")
+    # the device sweep and the host loop, uncoded QPSK
+    const = M.qam_constellation(4).astype(np.complex64)
+
+    def model():
+        return LinkModel(
+            lambda b: M.modulate(b, const, 2),
+            SISOFlatChannel(fading_param=(1 + 0j, 0)),
+            lambda y, h, c, nv: M.demodulate_hard(y, const, 2), 2, const,
+            2.0)
+
+    snrs = np.arange(0, 9, 2.0)
+    t0 = time.perf_counter()
+    bers = model().link_performance_device(snrs, 10 ** 6, 1000, 1000,
+                                           frames_per_round=64)
+    dev_s = time.perf_counter() - t0
+    theory = erfc(np.sqrt(10 ** (snrs / 10) / 2)) / 2
+    host = model()
+    host.modulate = lambda b: M.modulate(b, const, 2).cpu().numpy()
+    host.receive = (lambda y, h, c, nv: M.demodulate_hard(
+        torch.as_tensor(y, device="cuda"), const, 2).cpu().numpy())
+    t0 = time.perf_counter()
+    host_bers = host.link_performance([6.0], 50_000, 10 ** 9, 1000)
+    host_s = time.perf_counter() - t0
+    qpsk = {"snrs_db": snrs.tolist(), "bers": bers.tolist(),
+            "theory": theory.tolist(), "s": dev_s,
+            "host_loop_ber_6db": float(host_bers[0]),
+            "host_loop_ms_per_chunk": host_s / 50 * 1e3}
+    print(f"Path O LinkModel.link_performance_device uncoded QPSK: BER "
+          f"{bers.tolist()} vs erfc {theory.tolist()} ({dev_s:.1f} s); host "
+          f"loop at 6 dB BER {host_bers[0]:.4e}, "
+          f"{qpsk['host_loop_ms_per_chunk']:.2f} ms a 1000-bit chunk",
+          flush=True)
+    if not np.allclose(bers, theory, rtol=0.25):
+        fail(f"Path O: uncoded QPSK {bers} vs {theory}")
+    report["path_o"] = {"wifi80211": wifi, "turbo_decode": turbo,
+                        "qpsk_link_performance_device": qpsk}
     return launches
 
 
@@ -2252,16 +2673,34 @@ def main():
         "turbo_l512_maxlog_0db_ber": {str(k): v for k, v in maxlog.items()}})
 
     lap("path_c_and_physics")
+    # every kernel's launches by path; a record's launches are their sum
+    path_launches = {
+        "acs_forward": {"MCS-4": main_launches["acs_forward"]},
+        "traceback": {"MCS-4": main_launches["traceback"]},
+        "qc_bp_resident": {"A": launches_a},
+        "qc_bp_streamed": {"B": launches_b},
+        "bcjr_appdiff": {"C": launches_c}}
+
+    def add_launches(counts):
+        for name, paths in counts.items():
+            path_launches[name].update(paths)
+
     # ---- Paths D-G: MIMO detection and OFDM -----------------------------
-    path_launches = mimo_ofdm_paths(torch, report, k7)
+    add_launches(mimo_ofdm_paths(torch, report, k7))
     auto_past_the_limits(torch, report)
 
     lap("paths_d_to_g")
     # ---- Paths H-L: single-carrier DSP and the algebraic codes -----------
-    for name, paths in dsp_code_paths(torch, report, k7).items():
-        path_launches.setdefault(name, {}).update(paths)
+    add_launches(dsp_code_paths(torch, report, k7))
 
     lap("paths_h_to_l")
+    # ---- Paths M-O: polar, the IDD link, the CommPy-compatible API ------
+    polar_path(torch, report)
+    lap("path_m")
+    add_launches(idd_path(torch, report))
+    lap("path_n")
+    add_launches(api_path(torch, report))
+    lap("path_o")
     # ---- timing -------------------------------------------------------
     timings = {}
     tb_inputs = {}
@@ -2610,7 +3049,8 @@ def main():
         bb_ms, _ = bound_ms(*bn[f"{key}_bound"], rate)
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": replaces, "launches": main_launches[name],
+            "replaces": replaces,
+            "launches": sum(path_launches[name].values()),
             "mismatches": tallies[name].mismatches,
             "compared": tallies[name].compared,
             "max_abs_err": tallies[name].max_abs_err,
@@ -2622,8 +3062,7 @@ def main():
                 bn[f"{key}_plain_ms"], "bench_bound_ms": bb_ms,
         })
         kernels[-1].update({
-            "path_launches": {"MCS-4": main_launches[name],
-                              **path_launches[name]},
+            "path_launches": path_launches[name],
             "redesigned": True, "device_ms": m4[f"{key}_device_ms"],
             "bench_device_ms": bn[f"{key}_device_ms"], "ms_note": MS_NOTE,
             "plan": m4[f"{key}_plan"]})
@@ -2643,13 +3082,12 @@ def main():
                 "merge_steps_per_frame": m4["tb_merge_steps_per_frame"],
                 "bench_merge_steps_per_frame":
                     bn["tb_merge_steps_per_frame"]})
-    for name, key, replaces, launches, shape in (
+    for name, key, replaces, shape in (
             ("qc_bp_resident", "k4_flooding15",
-             "commpy_tpu/kernels/qc_bp.py:290", launches_a,
+             "commpy_tpu/kernels/qc_bp.py:290",
              "802.11n (1944, 972) B=512 MSA flooding-15"),
             ("qc_bp_streamed", "k5_f32", "commpy_tpu/kernels/qc_bp.py:565",
-             launches_b, "DVB-S2-class (16200, 7200) B=512 MSA layered-8 "
-             "f32 store")):
+             "DVB-S2-class (16200, 7200) B=512 MSA layered-8 f32 store")):
         t = timings[key]
         other = timings["k4_layered8" if key == "k4_flooding15"
                         else "k5_bf16"]
@@ -2658,7 +3096,9 @@ def main():
                  if name == "qc_bp_streamed" else None)
         kernels.append({
             "name": name, "route": "cuda", "source": QC_SOURCE,
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces,
+            "launches": sum(path_launches[name].values()),
+            "path_launches": path_launches[name],
             "mismatches": qc_tallies[name].mismatches,
             "compared": qc_tallies[name].compared,
             "max_abs_err": qc_tallies[name].max_abs_err,
@@ -2681,16 +3121,12 @@ def main():
         })
         if name == "qc_bp_resident":
             kernels[-1].update({
-                "path_launches": {"A": launches_a,
-                                  **path_launches["qc_bp_resident"]},
                 "redesigned": True, "plan": t["plan"],
                 "sweeps_device_ms": t["sweeps_device_ms"],
                 "second_plan": other["plan"],
                 "second_sweeps_device_ms": other["sweeps_device_ms"]})
         if name == "qc_bp_streamed":
             kernels[-1].update({
-                "path_launches": {"B": launches_b,
-                                  **path_launches["qc_bp_streamed"]},
                 "redesigned": True,
                 "frames_per_sm_trade": t["frames_per_sm_trade"],
                 "second_frames_per_sm_trade": other["frames_per_sm_trade"],
@@ -2712,7 +3148,9 @@ def main():
         for key in K3_BENCH}
     kernels.append(dict({
         "name": "bcjr_appdiff", "route": "cuda", "source": BCJR_SOURCE,
-        "replaces": "commpy_tpu/kernels/bcjr.py:296", "launches": launches_c,
+        "replaces": "commpy_tpu/kernels/bcjr.py:296",
+        "launches": sum(path_launches["bcjr_appdiff"].values()),
+        "path_launches": path_launches["bcjr_appdiff"],
         "mismatches": k3_tally.mismatches, "compared": k3_tally.compared,
         "bit_diffs": k3_tally.bit_diffs, "max_abs_err": k3_tally.max_abs_err,
         "ms": t["ms"], "kernel_ms": t["ms"], "device_ms": t["device_ms"],
@@ -2818,6 +3256,23 @@ def main():
                 report["path_k"]["rs_255_223_t16"]["info_bits_per_s"]},
         "equalize_mmse_t31_l5_msamples_per_s":
             report["equalize_mmse_t31_l5"]["msamples_per_s"],
+        "polar_idd_link_info_bits_per_s": {
+            "path_m": report["path_m"]["timing"]["info_bits_per_s"],
+            "path_n": report["path_n"]["timing"]["info_bits_per_s"]},
+        "polar_idd_link_configs": {
+            "path_m": "polar (1024, 512) CRC-11 QPSK SCL-8 (unrolled), "
+                      "F=512, Eb/N0 2 dB",
+            "path_n": "IDD K-best(16) 4x4 16-QAM + WiMAX LDPC (1440, 720) "
+                      "MSA-15, n_it=1, F=512, 18 dB"},
+        "polar_decoder_info_bits_per_s": {
+            k: v["info_bits_per_s"]
+            for k, v in report["path_m"]["decoders"].items()},
+        "compatible_api": {
+            "wifi80211_mcs4_12db_ber": report["path_o"]["wifi80211"]["ber"],
+            "wifi80211_ms_per_chunk":
+                report["path_o"]["wifi80211"]["ms_per_chunk"],
+            "device_link_ber": report["path_o"]["wifi80211"][
+                "device_link_ber"]},
         "card": card, "seconds": report["seconds"], "phase_s": phase_s}),
         flush=True)
     os.makedirs("build", exist_ok=True)

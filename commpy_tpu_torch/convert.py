@@ -21,6 +21,9 @@ the modem's constellation.  Constellations pass through as NumPy arrays.
   from its own construction, which must give the same generator
   polynomial.  Filter, channel and equalizer taps pass through as NumPy
   arrays.
+* :func:`polar_code_from_fields` takes the fields of a JAX package
+  ``PolarCode`` (``N``, ``K``, ``frozen``, ``crc``, ``rm``,
+  ``systematic``); the frozen mask is the code's whole design.
 """
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ from .ops.trellis import Trellis
 __all__ = ["TABLE_KEYS", "trellis_tables", "trellis_from_tables",
            "qc_params_from_arrays", "ldpc_params_from_arrays",
            "turbo_params_from_arrays", "bch_code_from_fields",
-           "rs_code_from_fields", "crc_spec_from_fields"]
+           "rs_code_from_fields", "crc_spec_from_fields",
+           "polar_code_from_fields"]
 
 TABLE_KEYS = ("next_state_table", "output_table", "pred_state_table",
               "pred_input_table", "branch_codewords")
@@ -296,3 +300,32 @@ def crc_spec_from_fields(d, name=None):
         raise ValueError(f"poly {poly} is not the port's {name} "
                          f"{CRC_POLYNOMIALS[name]}")
     return CrcSpec(poly=poly, init=f["init"], xorout=f["xorout"])
+
+
+def polar_code_from_fields(d):
+    """A port :class:`~commpy_tpu_torch.ops.polar.PolarCode` from ``{N, K,
+    frozen, crc, rm, systematic}`` (read off a JAX package ``PolarCode``).
+
+    ``crc`` (None, or a CrcSpec's fields) goes through
+    :func:`crc_spec_from_fields`; a code whose CRC is the JAX package's
+    crc24c keeps that polynomial, which is not the port's crc24c.  The
+    port's ``PolarCode`` checks the mask against N, K and the CRC length;
+    a systematic code's payload must reappear at its info positions.
+    Raises ``ValueError`` otherwise.
+    """
+    from .ops.polar import PolarCode, _check_systematic
+
+    get = d.get if isinstance(d, dict) else (lambda k: getattr(d, k, None))
+    crc = get("crc")
+    rm = get("rm")
+    code = PolarCode(
+        N=int(get("N")), K=int(get("K")),
+        frozen=tuple(bool(f) for f in get("frozen")),
+        crc=None if crc is None else crc_spec_from_fields(crc),
+        rm=None if rm is None else (str(rm[0]), int(rm[1])),
+        systematic=bool(get("systematic")))
+    if code.rm and code.rm[0] not in ("shorten", "puncture", "repeat"):
+        raise ValueError(f"unknown rate-matching mode {code.rm[0]!r}")
+    if code.systematic:
+        _check_systematic(code)
+    return code

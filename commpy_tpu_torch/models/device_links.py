@@ -21,6 +21,7 @@ The MIMO detectors' LLRs follow the reference's sign (positive => bit 0).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -30,6 +31,7 @@ from torch.profiler import record_function
 
 from ..ops import modem as M
 from ..ops import ofdm as OFDM
+from ..ops import polar as P
 from ..ops.bch import (bch_construct, make_bch_chase_decoder,
                        make_bch_decoder, make_bch_encoder)
 from ..ops.channel import crandn, snr_to_noise_std
@@ -52,13 +54,15 @@ from ..ops.turbo import turbo_decode_device, turbo_encode_device
 from ..ops.viterbi import viterbi_decode_device
 from ..utils.device import device_constant, on_device, resolve_device
 from ..utils.linalg import small_matmul
+from .idd import idd_decoder_device
 
 __all__ = ["DeviceLink", "make_conv_awgn_link", "make_rrc_conv_awgn_link",
            "make_turbo_awgn_link", "make_qcldpc_awgn_link",
            "make_ofdm_qcldpc_link", "make_dvbs2_concat_link",
            "make_isi_conv_link", "make_bch_awgn_link", "make_rs_awgn_link",
            "make_ldpc_rayleigh_link", "make_kbest_mimo_link",
-           "make_bestfirst_ldpc_mimo_link", "make_ofdm_mimo_conv_link"]
+           "make_bestfirst_ldpc_mimo_link", "make_ofdm_mimo_conv_link",
+           "make_polar_awgn_link", "make_idd_kbest_ldpc_mimo_link"]
 
 
 @dataclass
@@ -81,8 +85,8 @@ class DeviceLink:
         ======================  ==========================  ================
         LDPC Rayleigh           ``[F, n_symbols]``          ``h [F,
                                                             n_symbols]``
-        K-best / best-first     ``[F, n_vec, nr]``          ``h [F, n_vec,
-        MIMO                                                nr, nt]``
+        K-best / best-first /   ``[F, n_vec, nr]``          ``h [F, n_vec,
+        IDD MIMO                                            nr, nt]``
         OFDM-MIMO conv          time domain ``[F, nr, T]``  ``h [F, nr,
                                                             nt]``
         OFDM-LDPC               time domain ``[F, T]``      taps ``g [F,
@@ -99,7 +103,9 @@ class DeviceLink:
     receive : same arguments as ``transceive``; returns the decoder's
         input (depunctured LLRs, hard bits or reals) ``[F, n_coded]``; the
         turbo link's is the received reals ``[F, frame_bits, 3]``; the
-        uncoded K-best link's the detected symbols ``[F, n_vec * nt]``.
+        uncoded K-best link's the detected symbols ``[F, n_vec * nt]``;
+        the IDD link's the tuple the loop starts from (see
+        :func:`make_idd_kbest_ldpc_mimo_link`).
     decode : ``receive``'s output -> decoded bits ``[F, frame_bits]``; the
         turbo link's also takes ``noise_std``.
     """
@@ -1106,3 +1112,171 @@ def make_dvbs2_concat_link(
         lambda snr_db: snr_to_noise_std(snr_db, code_rate=rate, Es=Es),
         {"rate": rate, "Es": Es, "bps": bps, "t_bch": t_bch,
          "outer": outer}, (n_ldpc // bps,))
+
+
+def make_polar_awgn_link(
+    *,
+    code,
+    decoder: str = "scl",
+    list_size: int = 8,
+    modulation_m: int = 2,
+    use_psk: bool = True,
+    rule: str = "minsum",
+    name: str = "polar-awgn",
+    device="cuda",
+) -> DeviceLink:
+    """Polar-coded link over complex AWGN.
+
+    ``code`` is a :class:`~commpy_tpu_torch.ops.polar.PolarCode` (build
+    with :func:`~commpy_tpu_torch.ops.polar.polar_construct`; give it a CRC
+    for CRC-aided list decoding).  ``decoder``: 'sc' or 'scl'; on a GPU the
+    list decoder is the one specialised to the frozen mask, on the CPU the
+    blocked scan (the same decisions).  The LLRs are the negated demapper
+    output (positive => bit 0), rate-recovered to the mother code.  CRC
+    parity bits count as rate overhead in the Eb/N0 accounting (rate =
+    K / E).
+    """
+    if decoder not in ("sc", "scl"):
+        raise ValueError(f"decoder must be 'sc' or 'scl', got {decoder!r}")
+    dev = resolve_device(device)
+    const, Es, bps = _constellation(modulation_m, use_psk)
+    if code.E % bps:
+        raise ValueError(f"E={code.E} must fill whole {bps}-bit symbols")
+    rate = code.rate
+    encode = P.make_polar_encoder(code, dev)
+    if decoder == "sc":
+        polar_decode = P.make_polar_sc_decoder(code, rule=rule, device=dev)
+    else:
+        # the device's builder, as the ops entry point picks it (cached)
+        polar_decode = functools.partial(
+            P.polar_scl_decode, code, list_size=list_size, rule=rule,
+            device=dev)
+
+    def receive(bits, noise, noise_std):
+        with record_function("link.encode"):
+            x = P.polar_rate_match(code, encode(bits), device=dev)  # [F, E]
+        with record_function("link.modulate_channel"):
+            y = _noisy(M.modulate(x, const, bps, device=dev), noise,
+                       noise_std)
+        with record_function("link.demodulate"):
+            ns = np.float32(noise_std)
+            return P.polar_rate_recover(
+                code, -M.demodulate_soft(y, const, bps, ns * ns), device=dev)
+
+    def decode(llr):
+        with record_function("link.polar_decode"):
+            return polar_decode(llr)
+
+    return _link_parts(
+        name, dev, receive, decode, code.K,
+        lambda snr_db: snr_to_noise_std(snr_db, code_rate=rate, Es=Es),
+        {"rate": rate, "Es": Es, "bps": bps, "decoder": decoder},
+        (code.E // bps,))
+
+
+def make_idd_kbest_ldpc_mimo_link(
+    *,
+    ldpc_params: dict,
+    nb_tx: int = 4,
+    nb_rx: int = 4,
+    modulation_m: int = 16,
+    beam: int = 16,
+    algorithm: str = "MSA",
+    n_iterations: int = 15,
+    n_it: int = 1,
+    damping: float = 1.0,
+    llr_clip: float = 50.0,
+    name: str = "idd-kbest-ldpc-mimo",
+    device="cuda",
+) -> DeviceLink:
+    """LDPC-coded MIMO link decoded through the device IDD loop.
+
+    The chain of :func:`make_bestfirst_ldpc_mimo_link` with
+    ``detector='kbest'``, but the receive side is the iterative
+    detection-and-decoding loop of
+    :func:`commpy_tpu_torch.models.idd.idd_decoder_device` (the batched
+    image of the reference ``idd_decoder`` closure, commpy/links.py:
+    345-407): the prior-aware K-best soft detector and the LDPC BP
+    posterior exchange extrinsics ``n_it`` times, then a final BP decode
+    hard-decides the total LLRs.  A first detection pass with zero priors
+    plays the reference's ``received_msg``.  One frame is one codeword;
+    the decoder is :func:`~commpy_tpu_torch.ops.ldpc.ldpc_bp_decode_device`,
+    which lifts WiMAX to its QC form (K4 on the card, twice a step at
+    ``n_it=1``).
+
+    ``damping`` < 1 scales the decoder extrinsic fed back to the
+    detector (a decoder wrapper, so the loop itself stays the reference's
+    at ``damping=1``).  ``llr_clip`` bounds the detector's max-log LLRs,
+    which are +-inf where every survivor agrees on a bit, before any
+    extrinsic subtraction.
+
+    ``receive`` returns ``(y [F*n_vec, nr], h [F*n_vec, nr, nt],
+    noise_var, a0 [F*n_vec*nt*bps])``, the first pass's LLRs ``a0``;
+    ``decode`` runs the loop on them.  ``extras`` holds the loop's
+    ``detector``, ``decoder`` and ``decision``.
+    """
+    dev = resolve_device(device)
+    if ldpc_params.get("generator_matrix") is None:
+        build_matrix(ldpc_params)
+    G = np.asarray(ldpc_params["generator_matrix"].todense()) % 2
+    G_dev = torch.as_tensor(G.astype(np.int8), device=dev)
+    n_v = ldpc_params["n_vnodes"]
+    frame_bits = n_v - ldpc_params["n_cnodes"]
+    const, Es, bps = _constellation(modulation_m, False)
+    rate = frame_bits / n_v
+    n_sym = n_v // bps
+    if n_v % bps or n_sym % nb_tx:
+        raise ValueError(f"codeword length {n_v} must fill whole {bps}-bit "
+                         f"symbols and whole {nb_tx}-symbol vectors")
+    n_vec = n_sym // nb_tx
+
+    def detector(yv, hv, noise_var, a_priori):
+        return kbest_device(yv, hv, const, int(beam), noise_var, "soft", bps,
+                            a_priori=a_priori, llr_clip=float(llr_clip),
+                            device=dev)
+
+    def bp(llrs_flat):
+        return ldpc_bp_decode_device(llrs_flat.reshape(-1, n_v), ldpc_params,
+                                     algorithm, n_iterations, device=dev)
+
+    def soft_decoder(llrs_flat):
+        post = bp(llrs_flat)[1].reshape(-1)
+        if damping != 1.0:
+            # damp the extrinsic the loop derives (post - input):
+            # x + d*(post - x) makes a_det_new = d*(post - x)
+            post = llrs_flat + damping * (post - llrs_flat)
+        return post
+
+    def decision(llrs_flat):
+        return bp(llrs_flat)[0][..., :frame_bits]
+
+    idd = idd_decoder_device(detector, soft_decoder, decision, int(n_it))
+
+    def receive(bits, noise, noise_std, h):
+        F = bits.shape[0]
+        with record_function("link.encode"):
+            coded = ldpc_encode_device(bits, G_dev, device=dev)  # [F, n_v]
+        with record_function("link.modulate_channel"):
+            x = M.modulate(coded, const, bps, device=dev).reshape(
+                F, n_vec, nb_tx)
+            y, h = _mimo_channel(x, h, noise, noise_std)
+        with record_function("link.detect"):
+            yv, hv = y.reshape(-1, nb_rx), h.reshape(-1, nb_rx, nb_tx)
+            ns = np.float32(noise_std)
+            nv = ns * ns
+            a0 = detector(yv, hv, nv, torch.zeros(
+                (yv.shape[0], nb_tx * bps), dtype=torch.float32, device=dev))
+            return yv, hv, nv, a0.reshape(-1)
+
+    def decode(rx):
+        with record_function("link.idd_decode"):
+            return idd(*rx)
+
+    def noise_std_fn(snr_db):
+        return snr_to_noise_std(snr_db, code_rate=rate, Es=Es, nb_tx=nb_tx)
+
+    return _link_parts(name, dev, receive, decode, frame_bits, noise_std_fn,
+                       {"rate": rate, "Es": Es, "bps": bps, "n": n_v,
+                        "detector": detector, "decoder": soft_decoder,
+                        "decision": decision},
+                       (n_vec, nb_rx), (n_vec, nb_rx, nb_tx))

@@ -2,7 +2,8 @@
 scrambler, Viterbi decoder, the LDPC family (dense, QC, DVB-S2, NR),
 interleavers, turbo codes, MIMO detection, OFDM, synchronization, RF
 impairments, single-carrier DSP (filters, sequences, FIR, equalizers) and
-the algebraic codes (GF(2^m), BCH, RS, CRC, turbo product codes)."""
+the algebraic codes (GF(2^m), BCH, RS, CRC, turbo product codes) and
+polar codes."""
 from . import (
     algebraic,
     bch,
@@ -22,6 +23,7 @@ from . import (
     modem,
     nrldpc,
     ofdm,
+    polar,
     qcldpc,
     rs,
     scramble,
@@ -38,7 +40,7 @@ from .viterbi import viterbi_decode, viterbi_decode_device
 __all__ = [
     "algebraic", "bch", "channel", "convcode", "crc", "dvbs2", "equalize",
     "filters", "fir", "galois", "gf2m", "impairments", "interleave", "ldpc",
-    "mimo", "modem", "nrldpc", "ofdm", "qcldpc", "rs", "scramble",
+    "mimo", "modem", "nrldpc", "ofdm", "polar", "qcldpc", "rs", "scramble",
     "sequences", "sync", "tpc", "trellis", "turbo", "viterbi", "Trellis",
     "viterbi_decode", "viterbi_decode_device",
 ]

@@ -1,0 +1,84 @@
+"""Profiling helpers (absent in the reference).
+
+Counterpart of ``commpy_tpu/utils/profiling.py``:
+
+* :func:`trace`: a context manager around ``torch.profiler`` (CPU, and
+  CUDA when a card is present) that writes a Chrome trace file into
+  ``log_dir`` (open it in Perfetto or ``chrome://tracing``);
+* :class:`Throughput`: an items/s meter that synchronises the card around
+  its clock, so queued kernels count toward the block that launched them;
+* :func:`benchmark`: median wall-clock seconds a call, synchronising after
+  each call.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from typing import Callable
+
+import torch
+
+__all__ = ["trace", "Throughput", "benchmark"]
+
+
+def _sync():
+    """Wait for the card's queued work (nothing to wait for without
+    CUDA)."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the enclosed block and write ``trace_<pid>_<ns>.json`` into
+    ``log_dir``; yields the ``torch.profiler.profile`` object."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        try:
+            yield prof
+        finally:
+            _sync()
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+class Throughput:
+    """Accumulating items/s meter."""
+
+    def __init__(self):
+        self.items = 0
+        self.seconds = 0.0
+
+    @contextlib.contextmanager
+    def measure(self, n_items: int):
+        _sync()
+        t0 = time.perf_counter()
+        yield
+        _sync()
+        self.seconds += time.perf_counter() - t0
+        self.items += n_items
+
+    @property
+    def per_second(self) -> float:
+        return self.items / self.seconds if self.seconds else 0.0
+
+
+def benchmark(fn: Callable, *args, iters: int = 10, warmup: int = 1):
+    """Median wall-clock seconds a call; waits for the card's results."""
+    for _ in range(warmup):
+        fn(*args)
+    _sync()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn(*args)
+        _sync()
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    return times[len(times) // 2]

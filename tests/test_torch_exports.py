@@ -1,38 +1,41 @@
-"""What ``commpy_tpu_torch.ops`` and ``.models`` export, held against
-``commpy_tpu``.
+"""What ``commpy_tpu_torch.ops``, ``.models`` and ``.utils`` export,
+held against ``commpy_tpu``.
 
 Every name the JAX package's ``ops.__all__`` lists is exported by the
 port, except the modules the port has not reached yet (ROADMAP.md,
-queue 1); the port may list more of its own submodules.  The port's
-``models.__all__`` holds every link factory of the JAX package's models
-but the two of later slices, and nothing the JAX package's models do not
-export.  Importing the port's ``ops`` loads no ``jax`` and no
-``commpy_tpu``.
+queue 1: the multi-GPU streams); the port may list more of its own
+submodules.  The port's ``models.__all__`` holds all 15 link factories
+of the JAX package's models and the device IDD loop, and nothing the
+JAX package's models do not define.  The port's ``utils`` exports the
+profiling helpers of ``commpy_tpu.utils.profiling``.  Importing the
+port's ``ops``, or the port with its CommPy-compatible modules, loads no
+``jax`` and no ``commpy_tpu``.
 """
 import importlib.util
 import subprocess
 import sys
 import types
 
+import pytest
+
 import commpy_tpu.models as jmodels
 import commpy_tpu.models.device_links as jlinks
 import commpy_tpu.ops as jops
+import commpy_tpu.utils.profiling as jprofiling
 
 import commpy_tpu_torch.models as models
 import commpy_tpu_torch.ops as ops
+import commpy_tpu_torch.utils as utils
 
 # modules of commpy_tpu.ops the port has not ported yet, by ROADMAP.md
-# queue 1 item: polar; multi-GPU streams
+# queue 1 item: multi-GPU streams
 NOT_PORTED = {
-    "polar",
     "stream",
 }
-# link factories of later slices: polar; the CommPy-compatible IDD
-FACTORIES_NOT_PORTED = {"make_polar_awgn_link",
-                        "make_idd_kbest_ldpc_mimo_link"}
 NEW_FACTORIES = {"make_rrc_conv_awgn_link", "make_isi_conv_link",
                  "make_bch_awgn_link", "make_rs_awgn_link",
-                 "make_dvbs2_concat_link"}
+                 "make_dvbs2_concat_link", "make_polar_awgn_link",
+                 "make_idd_kbest_ldpc_mimo_link"}
 
 
 def test_ops_exports_what_the_port_has_ported():
@@ -47,10 +50,19 @@ def test_ops_exports_what_the_port_has_ported():
     assert ops.Trellis is ops.trellis.Trellis
     assert ops.viterbi_decode is ops.viterbi.viterbi_decode
     assert ops.viterbi_decode_device is ops.viterbi.viterbi_decode_device
+    # polar: the JAX module's names, and the unrolled SCL maker it leaves
+    # out of its __all__
+    assert set(ops.polar.__all__) == set(jops.polar.__all__) | {
+        "make_polar_scl_decoder_unrolled"}
 
 
-def test_ops_import_loads_no_jax():
-    code = ("import sys, commpy_tpu_torch.ops\n"
+@pytest.mark.parametrize("mods", [
+    "commpy_tpu_torch.ops",
+    "commpy_tpu_torch, commpy_tpu_torch.links, commpy_tpu_torch.wifi80211, "
+    "commpy_tpu_torch.channelcoding, commpy_tpu_torch.utilities, "
+    "commpy_tpu_torch.models, commpy_tpu_torch.utils.profiling"])
+def test_ops_import_loads_no_jax(mods):
+    code = (f"import sys, {mods}\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'commpy_tpu'))\n"
             "print(bad)\n"
@@ -63,13 +75,41 @@ def test_ops_import_loads_no_jax():
 def test_models_export_the_ported_link_factories():
     # the JAX package's models export: its models.__all__ and its
     # device_links.__all__ (which alone lists make_bestfirst_ldpc_mimo_link)
-    jax_names = set(jmodels.__all__) | set(jlinks.__all__)
+    # and the factories device_links defines (neither __all__ lists
+    # make_idd_kbest_ldpc_mimo_link)
     jax_factories = {name for name in dir(jlinks)
                      if name.startswith("make_") and name.endswith("_link")}
+    jax_names = set(jmodels.__all__) | set(jlinks.__all__) | jax_factories
     assert NEW_FACTORIES <= set(models.__all__)
-    assert set(models.__all__) <= jax_names - FACTORIES_NOT_PORTED
-    assert jax_factories - FACTORIES_NOT_PORTED <= set(models.__all__)
+    assert set(models.__all__) <= jax_names
+    assert jax_factories <= set(models.__all__)
     assert len(jax_factories) == 15
-    assert len({n for n in models.__all__ if n.startswith("make_")}) == 13
+    assert len({n for n in models.__all__ if n.startswith("make_")}) == 15
+    assert "idd_decoder_device" in models.__all__
     for name in models.__all__:
         assert hasattr(models, name), name
+
+
+def test_utils_exports_profiling():
+    assert "profiling" in utils.__all__
+    assert utils.profiling.__all__ == jprofiling.__all__
+    for name in utils.profiling.__all__:
+        assert hasattr(utils.profiling, name), name
+
+
+def test_profiling_helpers_on_cpu(tmp_path):
+    import torch
+
+    x = torch.randn(64, 64)
+    with utils.profiling.trace(str(tmp_path / "t")) as prof:
+        (x @ x).sum()
+    files = list((tmp_path / "t").glob("trace_*.json"))
+    assert len(files) == 1 and files[0].stat().st_size > 0
+    assert any("matmul" in e.key or "mm" in e.key
+               for e in prof.key_averages())
+    meter = utils.profiling.Throughput()
+    for _ in range(2):
+        with meter.measure(1000):
+            (x @ x).sum()
+    assert meter.items == 2000 and meter.per_second > 0
+    assert utils.profiling.benchmark(lambda a: a @ a, x, iters=3) > 0
