@@ -143,6 +143,26 @@ Run from the root of a checkout:  python3 chip_smoke.py
    route's bits, ``LinkModel.link_performance_device`` for uncoded QPSK
    within rtol 0.25 of erfc, and the host loops' time a chunk;
    each link timed and profiled;
+14. (run after 13) Paths P-R, at world size 1 over NCCL
+   (``make_mesh()``), each with the kernel counts set to 0 just before
+   and read just after: P, ``montecarlo_ber`` with ``mesh=`` on the
+   MCS-4 link at F=2048, 12 dB, its tallies equal to the main path's and
+   each round's to the mesh-less round's, exactly, and the physics checks
+   above through the mesh, ``LinkModel.link_performance_device(mesh=)``
+   equal to ``mesh=None``; Q, the sequence-parallel Viterbi stream (2^20
+   info bits, K=7 soft BPSK, Eb/N0 3 dB, tb_depth 30, warmup 128) equal to
+   ``viterbi_decode_device`` on its window and ten times under uncoded
+   BPSK, K1 and K2 held to their plain versions on a 4,096-bit stream, and
+   the turbo stream (L=6144, 4-state RSC, 8 iterations, Eb/N0 2 dB, 8
+   frames) in both ``boundary_init`` modes under BER 1e-4, K3 held to its
+   plain version on every MAP pass of one decode in each mode and its
+   first pass compared with ``_bcjr_masked``; R, the edge-sharded LDPC
+   decoder on Path A's LLRs (802.11n 1944, B=512, MSA-15) equal to the
+   dense decode, the Z-sharded DVB-S2-class decoder (B=512, MSA
+   flooding-15) equal to the plain flooding core, the sharded FIR on 2^22
+   samples with Path H's RRC taps within 1e-5 of ``fir_filter``, and a
+   one-stage ``pipeline_map`` of four link stages equal to their serial
+   composition; each timed and profiled;
 
 With ``--ab DIR`` (a checkout of another commit, e.g. the parent unpacked
 with ``git archive``), it also loads that checkout's ``commpy_tpu_torch``
@@ -2232,6 +2252,581 @@ def api_path(torch, report):
     return launches
 
 
+def profile_call(torch, fn, step_s, label, steps=2):
+    """:func:`profile_link_step` of a call that is not a link step."""
+    import types
+
+    shim = types.SimpleNamespace(link_step=lambda g, frames, ns: fn())
+    return profile_link_step(torch, shim, None, None, step_s, steps=steps,
+                             label=label)
+
+
+def host_step_s(torch, fn, reps=3):
+    """Host-clock seconds of one call of ``fn``, the device drained, after
+    one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def dp_path(torch, report, link, main_res, uncoded_2db, k7):
+    """Path P: the data-parallel engine at world size 1 over NCCL.
+
+    ``montecarlo_ber`` with ``mesh=make_mesh()`` on the MCS-4 link at
+    F=2048, 12 dB (the main path's configuration and seed): its tallies
+    equal the main path's, and each round's the mesh-less round's,
+    exactly; K1 and K2 counted.  Through the mesh: uncoded QPSK against
+    erfc (rtol 0.25), K=7 soft at 2 dB ten times under the uncoded curve,
+    ``errs(35 dB) == 0 < errs(5 dB)`` on MCS-4, and one
+    ``LinkModel.link_performance_device(mesh=...)`` equal to ``mesh=None``.
+    Returns {kernel: {"P": launches}}."""
+    from commpy_tpu_torch.channels import SISOFlatChannel
+    from commpy_tpu_torch.kernels import viterbi_acs as K
+    from commpy_tpu_torch.links import LinkModel
+    from commpy_tpu_torch.models.device_links import make_conv_awgn_link
+    from commpy_tpu_torch.ops import modem as M
+    from commpy_tpu_torch.ops.channel import snr_to_noise_std
+    from commpy_tpu_torch.parallel import (distributed, make_mesh,
+                                           make_round_fn, montecarlo_ber)
+    from scipy.special import erfc
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    mesh = make_mesh()  # NCCL, a world of one
+    distributed_init_s = time.perf_counter() - t0
+    info = distributed.process_info()
+    K.acs_forward.launches = K.traceback.launches = 0
+    res = montecarlo_ber(link.link_step, [12.0], link.noise_std_fn,
+                         link.frame_bits, seed=1, frames_per_round=2048,
+                         max_rounds=3, err_min=10 ** 9, device="cuda",
+                         mesh=mesh)
+    launches = {"acs_forward": {"P": K.acs_forward.launches},
+                "traceback": {"P": K.traceback.launches}}
+    print(f"Path P MCS-4 F=2048 at 12 dB over make_mesh() (NCCL, world "
+          f"{info[1]}): {res.rounds} rounds, BER {res.bers[0]:.3e}, "
+          f"{res.bit_errors[0]:.0f} errors (main path "
+          f"{main_res.bit_errors[0]:.0f}); launches {launches}", flush=True)
+    if not np.array_equal(res.bit_errors, main_res.bit_errors) or \
+            not np.array_equal(res.bits_sent, main_res.bits_sent):
+        fail("Path P: the mesh's tallies differ from the main path's")
+    if not all(v["P"] for v in launches.values()):
+        fail(f"Path P never launched a kernel: {launches}")
+    ns = [float(link.noise_std_fn(12.0))]
+    rf_mesh = make_round_fn(link.link_step, ns, 2048, "cuda", mesh)
+    rf_solo = make_round_fn(link.link_step, ns, 2048, "cuda")
+    per_round = [(rf_mesh(1, r).tolist(), rf_solo(1, r).tolist())
+                 for r in range(3)]
+    if any(a != b for a, b in per_round):
+        fail(f"Path P: mesh and mesh-less rounds differ: {per_round}")
+    step_mesh = host_step_s(torch, lambda: rf_mesh(1, 0))
+    step_solo = host_step_s(torch, lambda: rf_solo(1, 0))
+    # what every rank repeats: the round's whole draw (bits and noise)
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    draw_ms = cuda_ms(torch, lambda: link.draw(g, 2048), 10)
+    prof = profile_call(torch, lambda: rf_mesh(1, 0), step_mesh,
+                        "Path P MCS-4 round over the mesh")
+    # physics through the mesh
+    qpsk = M.qam_constellation(4).astype(np.complex64)
+
+    def uncoded_step(gen, frames, noise_std, rows=None):
+        bits = torch.randint(0, 2, (frames, 1000), generator=gen, device=dev,
+                             dtype=torch.int8)
+        z = torch.randn((2, frames, 500), generator=gen, device=dev)
+        if rows is not None:
+            bits, z = bits[rows], z[:, rows]
+        y = M.modulate(bits, qpsk, 2) + torch.complex(z[0], z[1]) * (
+            noise_std * 0.5)
+        return torch.sum(M.demodulate_hard(y, qpsk, 2) ^ bits,
+                         dtype=torch.int32)
+
+    snrs = np.arange(0, 9, 2.0)
+    unc = montecarlo_ber(uncoded_step, snrs,
+                         lambda s: snr_to_noise_std(s, Es=2.0), 1000, seed=2,
+                         frames_per_round=256, max_rounds=20, err_min=400,
+                         device="cuda", mesh=mesh)
+    theory = erfc(np.sqrt(10 ** (snrs / 10) / 2)) / 2
+    coded = make_conv_awgn_link(trellis=k7, modulation_m=2, frame_bits=1000,
+                                decoding_type="soft", device="cuda")
+    cod = montecarlo_ber(coded.link_step, [2.0], coded.noise_std_fn, 1000,
+                         seed=3, frames_per_round=512, max_rounds=8,
+                         err_min=200, device="cuda", mesh=mesh)
+    errs = {db: int(make_round_fn(link.link_step,
+                                  [float(link.noise_std_fn(db))], 256,
+                                  "cuda", mesh)(4, 0)[0])
+            for db in (35.0, 5.0)}
+    const = M.qam_constellation(4).astype(np.complex64)
+
+    def model():
+        return LinkModel(
+            lambda b: M.modulate(b, const, 2),
+            SISOFlatChannel(fading_param=(1 + 0j, 0)),
+            lambda y, h, c, nv: M.demodulate_hard(y, const, 2), 2, const,
+            2.0)
+
+    lpd = model().link_performance_device([0.0, 4.0], 64_000, 10 ** 6, 1000,
+                                          frames_per_round=16, mesh=mesh)
+    lpd_solo = model().link_performance_device([0.0, 4.0], 64_000, 10 ** 6,
+                                               1000, frames_per_round=16)
+    print(f"Path P physics over the mesh: uncoded QPSK BER "
+          f"{unc.bers.tolist()} vs erfc {theory.tolist()}; K=7 soft 2 dB "
+          f"{cod.bers[0]:.3e} vs uncoded {uncoded_2db:.3e}; MCS-4 errors "
+          f"{errs}; link_performance_device {lpd.tolist()} (mesh=None "
+          f"{lpd_solo.tolist()}); round {step_mesh * 1e3:.3f} ms over the "
+          f"mesh, {step_solo * 1e3:.3f} ms without, the draw "
+          f"{draw_ms:.4f} ms; process group and "
+          f"mesh {distributed_init_s:.2f} s", flush=True)
+    if not np.allclose(unc.bers, theory, rtol=0.25):
+        fail("Path P: uncoded QPSK BER over the mesh does not match erfc")
+    if not (cod.bit_errors[0] > 0 and cod.bers[0] * 10 < uncoded_2db):
+        fail("Path P: K=7 soft does not beat uncoded QPSK by 10x at 2 dB")
+    if not errs[35.0] == 0 < errs[5.0]:
+        fail("Path P: MCS-4 fails errs(35 dB) == 0 < errs(5 dB)")
+    if not np.array_equal(lpd, lpd_solo):
+        fail("Path P: link_performance_device over the mesh differs")
+    report["path_p"] = {
+        "world": info, "process_group_and_mesh_s": distributed_init_s,
+        "bit_errors": res.bit_errors.tolist(), "ber": res.bers.tolist(),
+        "per_round": per_round, "launches": launches,
+        "round_ms_mesh": step_mesh * 1e3, "round_ms_no_mesh": step_solo * 1e3,
+        "draw_ms": draw_ms,
+        "info_bits_per_s": 2048 * 1200 / step_mesh, "profile": prof,
+        "uncoded_qpsk_ber": unc.bers.tolist(), "k7_soft_2db_ber":
+            float(cod.bers[0]), "mcs4_errs": {str(k): v for k, v in
+                                              errs.items()},
+        "link_performance_device": lpd.tolist()}
+    return launches
+
+
+def stack_k3_calls(torch, BK, calls):
+    """K3's outputs on ``calls`` (``(args, kwargs, output)`` of one-lane
+    calls of one shape) side by side, and its plain version's on the same
+    inputs, stacked along the lane axis."""
+    def lanes(xs):
+        return torch.cat(list(xs), dim=-1)
+
+    args = [lanes(c[0][i] for c in calls) for i in range(3)]
+    kw = dict(calls[0][1])
+    if "valid" in kw:
+        kw["valid"] = lanes(c[1]["valid"] for c in calls)
+        kw["first"] = lanes(c[1]["first"] for c in calls)
+    if "boundary" in kw:
+        kw["boundary"] = tuple(lanes(c[1]["boundary"][i] for c in calls)
+                               for i in range(2))
+    outs = [c[2] if isinstance(c[2], tuple) else (c[2],) for c in calls]
+    got = tuple(lanes(o[i] for o in outs) for i in range(len(outs[0])))
+    want = BK.bcjr_appdiff_plain(*args, calls[0][0][3], **kw)
+    return got, want if isinstance(want, tuple) else (want,)
+
+
+def record_calls(module, names, fn):
+    """Run ``fn`` with each ``module.name`` wrapped to record its calls:
+    returns {name: [(args, kwargs, output), ...]}."""
+    calls = {name: [] for name in names}
+    real = {name: getattr(module, name) for name in names}
+
+    def recorder(name):
+        def call(*a, **kw):
+            out = real[name](*a, **kw)
+            calls[name].append((a, kw, out))
+            return out
+        return call
+
+    for name in names:
+        setattr(module, name, recorder(name))
+    try:
+        fn()
+    finally:
+        for name in names:
+            setattr(module, name, real[name])
+    return calls
+
+
+def stream_k1_k2_full(torch, calls):
+    """K1 and K2 on the words the 2^20 stream decoded (its recorded calls):
+    K2 against its plain version on the card, K1 against its plain
+    version on the host (on the card the plain ACS is launch-bound at
+    ~0.35 ms a step, minutes at 2^20 steps; the host's per-step ops are
+    cheaper).  Returns the tallies and what the check took."""
+    from commpy_tpu_torch.kernels import viterbi_acs as K
+
+    (acs_a, _, (dec, best)), = calls["acs_forward"]
+    (tb_a, _, bits), = calls["traceback"]
+    r, C, hc = (acs_a + (None,))[:3]
+    _, _, S, tbd = tb_a
+    tally = {"acs_forward": Tally(), "traceback": Tally()}
+    tally["traceback"].add(bits, K.traceback_plain(dec, best, S, tbd))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        dec_h, best_h = K.acs_forward_plain(
+            r.cpu(), C.cpu(), None if hc is None else hc.cpu())
+    host_s = time.perf_counter() - t0
+    tally["acs_forward"].add(dec.cpu(), dec_h)
+    tally["acs_forward"].add(best.cpu(), best_h)
+    B, T, _ = r.shape
+    return tally, {"T": T, "B": B, "host_plain_acs_s": host_s,
+                   "k2_plan": K.traceback_plan(S, T, tbd, B)}
+
+
+def k3_vs_bcjr_masked(torch, ST, passes):
+    """The kernel route's MAP passes (``_map_pass`` calls recorded in one
+    decode) against ``_bcjr_masked`` on the same inputs, all passes as
+    rows of one host call.  K3, as the Pallas kernel, does not renormalise
+    per step, so its metrics grow along the window by up to Gamma = the sum
+    over valid steps of (|sy| + |pa|) / nv + |li|, and float32 rounds e by
+    about eps Gamma (``test_torch_stream.py`` holds this law from T = 288
+    to 4608): a pass fails past 4 eps Gamma, or on another decision where
+    the reference is past that bound; carries are compared up to their
+    constant offset."""
+    a0, kw0, _ = passes[0]
+    nv, inv_nv, trellis, max_log = a0[4], a0[5], a0[6], a0[7]
+
+    def rows(get):
+        return torch.stack([get(p) for p in passes]).cpu()
+
+    sy, pa, li = (rows(lambda p, i=i: p[0][i]) for i in (1, 2, 3))
+    R, Wn = sy.shape
+    nii = kw0.get("boundary") is not None
+    valid = (torch.ones((R, Wn), dtype=torch.bool) if nii
+             else rows(lambda p: p[1]["valid"]))
+    first = torch.cat([p[1]["first"] for p in passes]).cpu()
+    init = ({"alpha_init": rows(lambda p: p[1]["boundary"][0]),
+             "beta_init": rows(lambda p: p[1]["boundary"][1]),
+             "return_carries": True} if nii else {})
+    t0 = time.perf_counter()
+    out = ST._bcjr_masked(sy, pa, li, nv, trellis, valid, first, max_log,
+                          **init)
+    host_s = time.perf_counter() - t0
+    apps = out[0] if nii else out
+    want = (apps[..., 1] - apps[..., 0],) + (tuple(out[1:]) if nii else ())
+    got = tuple(rows(lambda p, i=i: p[2][i] if nii else p[2])
+                for i in range(len(want)))
+    gamma = torch.where(valid, (sy.abs() + pa.abs()) * inv_nv + li.abs(),
+                        torch.zeros(())).sum(1)
+    bound = 4 * float(np.finfo(np.float32).eps) * gamma  # [R]
+    dev_e = (got[0] - want[0]).abs()
+    carries = [((g - g.amax(1, keepdim=True)) - (w - w.amax(1, keepdim=True))
+                ).abs().amax(1) for g, w in zip(got[1:], want[1:])]
+    over = (dev_e.amax(1) > bound).sum() + sum(
+        (c > bound).sum() for c in carries)
+    return {"passes": R, "window": Wn, "values": dev_e.numel(),
+            "max_abs_dev": float(dev_e.max()),
+            "max_rel_dev": float((dev_e / (1 + want[0].abs())).max()),
+            "max_dev_over_eps_gamma": float(
+                (dev_e.amax(1) / (bound / 4)).max()),
+            "bound_4_eps_gamma": [float(bound.min()), float(bound.max())],
+            "carry_max_dev": [float(c.max()) for c in carries],
+            "sign_differs": int(((got[0] > 0) != (want[0] > 0)).sum()),
+            "sign_differs_past_bound": int((((got[0] > 0) != (want[0] > 0))
+                                            & (want[0].abs() > bound[:, None])
+                                            ).sum()),
+            "passes_over_bound": int(over), "host_s": host_s}
+
+
+def stream_path(torch, report, k7):
+    """Path Q: the sequence-parallel streams at world size 1 over NCCL.
+
+    The Viterbi stream of 2^20 info bits (K=7 soft BPSK, Eb/N0 3 dB,
+    tb_depth 30, warmup 128): bits equal ``viterbi_decode_device`` on the
+    same extended window, BER ten times under uncoded BPSK, K1/K2 counted
+    and held bit for bit to their plain versions on the stream's own
+    window (K2's device-memory plan) and on a 4,096-bit stream (its staged
+    plan).  The turbo stream (4-state (1, 7/5) RSC, L=6144, 8 log-MAP
+    iterations, Eb/N0 2.0 dB, 8 frames) in both ``boundary_init`` modes:
+    BER under 1e-4, K3 counted; on every MAP pass of one decode in each
+    mode, K3 against its plain version (``K3Tally``) and against
+    ``_bcjr_masked``, the JAX package's masked core, within float32 drift
+    (:func:`k3_vs_bcjr_masked`).
+    Returns {kernel: {"Q": launches}}."""
+    from commpy_tpu_torch.kernels import bcjr as BK
+    from commpy_tpu_torch.kernels import viterbi_acs as K
+    from commpy_tpu_torch.ops import stream as ST
+    from commpy_tpu_torch.ops.convcode import encode_scan
+    from commpy_tpu_torch.ops.interleave import RandInterlv
+    from commpy_tpu_torch.ops.turbo import turbo_encode_device
+    from commpy_tpu_torch.ops.viterbi import (received_words,
+                                              viterbi_decode_device)
+    from commpy_tpu_torch.parallel import make_mesh
+    from scipy.special import erfc
+
+    dev = torch.device("cuda")
+    mesh = make_mesh(axis_name="sp")
+    rng = np.random.RandomState(120)
+    L, W, tb = 1 << 20, 128, 30
+    msg = torch.as_tensor(rng.randint(0, 2, (1, L)).astype(np.int8),
+                          device=dev)
+    coded = encode_scan(msg, k7)[0][0]
+    nv = 1 / (2 * 0.5 * 10 ** 0.3)  # Eb/N0 3 dB at rate 1/2
+    noise = torch.as_tensor(rng.randn(coded.numel()).astype(np.float32),
+                            device=dev)
+    llr = 2 * ((2.0 * coded.float() - 1) + noise * float(np.sqrt(nv))) / nv
+
+    def vstream(x):
+        return ST.sharded_viterbi_stream(x, k7, mesh, tb_depth=tb,
+                                         warmup_codewords=W)
+
+    K.acs_forward.launches = K.traceback.launches = 0
+    bits = vstream(llr)
+    torch.cuda.synchronize()
+    launches = {"acs_forward": {"Q": K.acs_forward.launches},
+                "traceback": {"Q": K.traceback.launches}}
+    ext = torch.cat([torch.zeros(2 * W, device=dev), llr,
+                     torch.zeros(2 * tb, device=dev)])
+    ref = viterbi_decode_device(ext, k7, tb, "soft",
+                                L=W + L + tb)[W:W + L]
+    ber = float((bits != msg[0]).float().mean())
+    uncoded = float(erfc(np.sqrt(10 ** 0.3)) / 2)
+    v_step = host_step_s(torch, lambda: vstream(llr))
+    v_prof = profile_call(torch, lambda: vstream(llr), v_step,
+                          "Path Q Viterbi stream L=2^20")
+    print(f"Path Q Viterbi stream L=2^20 K=7 soft Eb/N0 3 dB: BER {ber:.3e} "
+          f"(uncoded {uncoded:.3e}); equal to the decode of its window: "
+          f"{bool(torch.equal(bits, ref))}; {v_step * 1e3:.3f} ms, "
+          f"{L / v_step:.4g} info bits/s; launches {launches}", flush=True)
+    if not torch.equal(bits, ref):
+        fail("Path Q: the Viterbi stream differs from viterbi_decode_device")
+    if not (0 < ber * 10 < uncoded):
+        fail(f"Path Q: Viterbi stream BER {ber} vs uncoded {uncoded}")
+    if not all(v["Q"] for v in launches.values()):
+        fail(f"Path Q: the Viterbi stream launched {launches}")
+    # K1 and K2 on the words of the 2^20 stream's own decode
+    from commpy_tpu_torch.ops import viterbi as OV
+    full, full_info = stream_k1_k2_full(torch, record_calls(
+        OV, ("acs_forward", "traceback"), lambda: vstream(llr)))
+    print(f"Path Q K1/K2 on the 2^20 stream's window (T {full_info['T']}, "
+          f"K2 staged {full_info['k2_plan']['staged']}): "
+          f"{ {k: t.mismatches for k, t in full.items()} } mismatches in "
+          f"{ {k: t.compared for k, t in full.items()} }; the host's plain "
+          f"ACS took {full_info['host_plain_acs_s']:.1f} s", flush=True)
+    for name, t in full.items():
+        if t.mismatches or not t.compared:
+            fail(f"Path Q: {name} disagrees with its plain version on the "
+                 f"2^20-bit stream's window")
+    # K1 and K2 on a 4,096-bit stream's words, against their plain versions
+    small = llr[:2 * 4096]
+    ext_s = torch.cat([torch.zeros(2 * W, device=dev), small,
+                       torch.zeros(2 * tb, device=dev)])
+    tally = {"acs_forward": Tally(), "traceback": Tally()}
+    r = received_words(ext_s[None], k7, "soft", W + 4096 + tb)
+    compare_case(torch, tally, k7, "soft", 1, W + 4096 + tb, tb, 0, r=r)
+    if not torch.equal(vstream(small), viterbi_decode_device(
+            ext_s, k7, tb, "soft", L=W + 4096 + tb,
+            backend="torch")[W:W + 4096]):
+        fail("Path Q: the 4,096-bit stream differs from the plain route")
+    for name, t in tally.items():
+        if t.mismatches:
+            fail(f"Path Q: {name} disagrees with its plain version on the "
+                 f"4,096-bit stream")
+    # the turbo stream, both modes
+    trt = rsc_trellises()[1][1]
+    T = 6144
+    p = RandInterlv(T, 0).p_array
+    nvt = float(np.float32(1 / (2 * (1 / 3) * 10 ** 0.2)))  # Eb/N0 2 dB
+    frames = []
+    for f in range(8):
+        m = torch.as_tensor(rng.randint(0, 2, (1, T)).astype(np.int8),
+                            device=dev)
+        x = 2.0 * torch.stack(turbo_encode_device(m, trt, trt, p)).to(
+            torch.float32)[:, 0] - 1.0
+        z = torch.as_tensor(rng.randn(3, T).astype(np.float32), device=dev)
+        frames.append((m[0], x + z * float(np.sqrt(nvt))))
+
+    def tstream(y, mode):
+        return ST.sharded_turbo_stream(y[0], y[1], y[2], trt, nvt, 8, p, mesh,
+                                       boundary_init=mode, warmup=64)
+
+    turbo = {}
+    k3_tally = K3Tally()
+    for mode in ("warmup", "nii"):
+        BK.bcjr_appdiff.launches = 0
+        errs = sum(int((tstream(y, mode) != m).sum()) for m, y in frames)
+        n_k3 = BK.bcjr_appdiff.launches
+        launches.setdefault("bcjr_appdiff", {})
+        launches["bcjr_appdiff"]["Q"] = launches["bcjr_appdiff"].get(
+            "Q", 0) + n_k3
+        step = host_step_s(torch, lambda: tstream(frames[0][1], mode))
+        prof = profile_call(torch, lambda: tstream(frames[0][1], mode), step,
+                            f"Path Q turbo stream {mode}")
+        # every K3 call and MAP pass of one decode, recorded
+        rec = record_calls(ST, ("bcjr_appdiff", "_map_pass"),
+                           lambda: tstream(frames[0][1], mode))
+        calls, passes = rec["bcjr_appdiff"], rec["_map_pass"]
+        torch.cuda.synchronize()
+        before = k3_tally.mismatches
+        # the plain version on all the passes at once, a lane a pass (its
+        # arithmetic is lane by lane, so a lane computes as alone)
+        got, want = stack_k3_calls(torch, BK, calls)
+        k3_tally.add(got, want, True)
+        vs_masked = k3_vs_bcjr_masked(torch, ST, passes)
+        turbo[mode] = {"frames": len(frames), "bit_errors": errs,
+                       "ber": errs / (len(frames) * T),
+                       "k3_launches": n_k3, "k3_calls_checked": len(calls),
+                       "k3_mismatches": k3_tally.mismatches - before,
+                       "step_s": step, "info_bits_per_s": T / step,
+                       "profile": prof, "vs_bcjr_masked": vs_masked}
+        print(f"Path Q turbo stream L=6144 {mode}, 8 iterations, Eb/N0 "
+              f"2 dB: {errs} errors in {len(frames)} frames; K3 {n_k3} "
+              f"launches; K3 against its plain version on {len(calls)} MAP "
+              f"passes: {k3_tally.mismatches - before} mismatches; every "
+              f"pass against _bcjr_masked {vs_masked}; {step * 1e3:.3f} ms "
+              f"a frame", flush=True)
+        if errs / (len(frames) * T) >= 1e-4:
+            fail(f"Path Q: turbo stream {mode} BER {errs / (len(frames) * T)}")
+        if n_k3 != 16 * len(frames) or len(calls) != 16:
+            fail(f"Path Q: turbo stream {mode} launched K3 {n_k3} times")
+        if k3_tally.mismatches != before:
+            fail(f"Path Q: K3 disagrees with its plain version ({mode})")
+        if (vs_masked["passes"] != 16 or vs_masked["passes_over_bound"]
+                or vs_masked["sign_differs_past_bound"]):
+            fail(f"Path Q: K3's route drifts from _bcjr_masked past "
+                 f"4 eps Gamma ({mode}): {vs_masked}")
+    report["path_q"] = {
+        "viterbi": {"L": L, "ber": ber, "uncoded_ber": uncoded,
+                    "step_s": v_step, "info_bits_per_s": L / v_step,
+                    "profile": v_prof, "k1_k2_4096": {
+                        k: {"compared": t.compared,
+                            "mismatches": t.mismatches}
+                        for k, t in tally.items()},
+                    "k1_k2_full_window": dict(full_info, **{
+                        k: {"compared": t.compared,
+                            "mismatches": t.mismatches}
+                        for k, t in full.items()})},
+        "turbo": turbo, "k3_tally": {
+            "cases": k3_tally.cases, "compared": k3_tally.compared,
+            "mismatches": k3_tally.mismatches,
+            "bit_diffs": k3_tally.bit_diffs,
+            "max_rel_err": k3_tally.max_rel_err},
+        "launches": launches}
+    return launches
+
+
+def tp_path(torch, report, codes, ldpc_link):
+    """Path R: the tensor-parallel decoders, the sharded FIR and the
+    pipeline at world size 1 over NCCL.
+
+    ``ldpc_bp_decode_sharded`` on 802.11n (1944, 972) B=512 MSA-15 on
+    Path A's LLRs (10 dB), equal to the dense one-device decode;
+    ``qc_bp_decode_sharded`` on the DVB-S2-class (16200, 1/2) code, B=512,
+    MSA flooding-15, equal to the plain flooding core (bits and LLRs);
+    ``sharded_fir_filter`` on 2^22 complex64 samples with Path H's RRC
+    taps, within 1e-5 relative of ``fir_filter(x, taps, 'full')[:n]``;
+    ``pipeline_map`` of the four link stages of ``test_pipeline.py``
+    composed into one stage, equal to their serial composition."""
+    from commpy_tpu_torch.ops import fir as FIR
+    from commpy_tpu_torch.ops import ldpc as L
+    from commpy_tpu_torch.ops import qcldpc as Q
+    from commpy_tpu_torch.ops.filters import rrcosfilter
+    from commpy_tpu_torch.parallel import make_mesh, pipeline_map
+
+    dev = torch.device("cuda")
+    mesh = make_mesh(axis_name="dp")
+    out = {}
+    # 802.11n 1944 as a design file, decoded edge-sharded
+    os.makedirs("build", exist_ok=True)
+    design = os.path.join("build", "80211n_1944_r12.txt")
+    Q.qc_export_design(codes["80211n-1944-1/2"][0], design)
+    dense = L.get_ldpc_code_params(design)
+    g = torch.Generator(device=dev)
+    g.manual_seed(130)
+    bits, noise = ldpc_link.draw(g, 512)
+    llr = ldpc_link.receive(bits, noise, float(ldpc_link.noise_std_fn(10.0)))
+    # the link's LLRs are in the QC codeword order, which is H's order
+
+    def ldpc_run():
+        return L.ldpc_bp_decode_sharded(llr, dense, "MSA", 15, mesh)
+
+    d1, o1 = ldpc_run()
+    d2, o2 = L.ldpc_bp_decode_device(llr, dense, "MSA", 15, backend="dense")
+    errs = int((d1[:, :972] != bits).sum())
+    raw = int((torch.signbit(llr)[:, :972].to(torch.int8) != bits).sum())
+    step = host_step_s(torch, ldpc_run)
+    out["ldpc_1944_b512_msa15"] = {
+        "equal_to_dense": bool(torch.equal(d1, d2) and torch.equal(o1, o2)),
+        "info_errors": errs, "channel_info_errors": raw, "step_s": step,
+        "info_bits_per_s": 512 * 972 / step,
+        "profile": profile_call(torch, ldpc_run, step,
+                                "Path R ldpc_bp_decode_sharded 1944")}
+    # DVB-S2-class, Z-sharded
+    pd, make = codes["dvbs2-16200-1/2"]
+    rng = np.random.RandomState(131)
+    cw = make(512, rng)
+    qllr = torch.as_tensor(bpsk_llr(cw, 2.0, 0.5, rng), device=dev)
+
+    def qc_run():
+        return Q.qc_bp_decode_sharded(qllr, pd, "MSA", 15, mesh)
+
+    a = qc_run()
+    b = Q.qc_bp_decode_device(qllr, pd, "MSA", 15, backend="torch")
+    step = host_step_s(torch, qc_run, reps=2)
+    out["qc_dvbs2_16200_b512_msa15"] = {
+        "equal_to_plain_core": bool(torch.equal(a[0], b[0])
+                                    and torch.equal(a[1], b[1])),
+        "errors": int((a[0].cpu().numpy() != cw).sum()),
+        "channel_errors": int((np.signbit(qllr.cpu().numpy()) != cw).sum()),
+        "step_s": step, "info_bits_per_s": 512 * pd["k_bits"] / step,
+        "profile": profile_call(torch, qc_run, step,
+                                "Path R qc_bp_decode_sharded DVB-S2",
+                                steps=1)}
+    # the sharded FIR on 2^22 samples with Path H's taps
+    _, taps = rrcosfilter(32, 0.35, 1.0, 4.0)
+    taps = torch.as_tensor((taps / np.sqrt(np.sum(taps ** 2))).astype(
+        np.float32), device=dev)
+    xs = torch.as_tensor((rng.randn(1 << 22) + 1j * rng.randn(1 << 22))
+                         .astype(np.complex64), device=dev)
+    sp = make_mesh(axis_name="sp")
+
+    def fir_run():
+        return FIR.sharded_fir_filter(xs, taps, sp)
+
+    y = fir_run()
+    want = FIR.fir_filter(xs, taps, "full")[:1 << 22]
+    rel = float((y - want).abs().max() / want.abs().max())
+    step = host_step_s(torch, fir_run)
+    out["fir_2p22_rrc"] = {"max_rel_err": rel, "step_s": step,
+                           "msamples_per_s": (1 << 22) / step / 1e6}
+    # the pipeline: four link stages composed into one (world size 1)
+    stages = [lambda w: torch.stack([2.0 * w[1] - 1.0, w[1]]),
+              lambda w: torch.stack([w[0] * 0.9, w[1]]),
+              lambda w: torch.stack([2.0 * w[0] / 0.5, w[1]]),
+              lambda w: torch.stack([(w[0] > 0).to(w.dtype), w[1]])]
+
+    def chain(w):
+        for f in stages:
+            w = f(w)
+        return w
+
+    bits_w = torch.as_tensor(rng.randint(0, 2, (6, 4096)).astype(np.float32),
+                             device=dev)
+    wire = torch.stack([torch.zeros_like(bits_w), bits_w], 1)
+    piped = pipeline_map([chain], wire, mesh)
+    serial = torch.stack([chain(w) for w in wire])
+    out["pipeline_1_stage"] = {"equal_to_serial": bool(torch.equal(piped,
+                                                                    serial)),
+                               "decisions_exact": bool(torch.equal(
+                                   piped[:, 0], bits_w))}
+    brief = {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
+             for k, v in out.items()}
+    print(f"Path R: {json.dumps(brief)}", flush=True)
+    if not out["ldpc_1944_b512_msa15"]["equal_to_dense"]:
+        fail("Path R: ldpc_bp_decode_sharded differs from the dense decode")
+    if not errs < raw:
+        fail(f"Path R: {errs} info errors after the sharded decode, {raw} "
+             f"before")
+    q = out["qc_dvbs2_16200_b512_msa15"]
+    if not q["equal_to_plain_core"] or not q["errors"] < q["channel_errors"]:
+        fail(f"Path R: qc_bp_decode_sharded {q}")
+    if not rel <= 1e-5:
+        fail(f"Path R: the sharded FIR is {rel} off fir_filter")
+    if not all(out["pipeline_1_stage"].values()):
+        fail(f"Path R: pipeline_map {out['pipeline_1_stage']}")
+    report["path_r"] = out
+
+
 def main():
     import torch
 
@@ -2701,6 +3296,14 @@ def main():
     lap("path_n")
     add_launches(api_path(torch, report))
     lap("path_o")
+    # ---- Paths P-R: data, sequence and tensor parallelism (NCCL) ---------
+    add_launches(dp_path(torch, report, link, res, uncoded_2db, k7))
+    lap("path_p")
+    add_launches(stream_path(torch, report, k7))
+    lap("path_q")
+    tp_path(torch, report, codes, ldpc_link)
+    torch.distributed.destroy_process_group()
+    lap("path_r")
     # ---- timing -------------------------------------------------------
     timings = {}
     tb_inputs = {}
@@ -3267,6 +3870,26 @@ def main():
         "polar_decoder_info_bits_per_s": {
             k: v["info_bits_per_s"]
             for k, v in report["path_m"]["decoders"].items()},
+        "parallel_paths": {
+            "path_p_round_ms": report["path_p"]["round_ms_mesh"],
+            "path_p_info_bits_per_s": report["path_p"]["info_bits_per_s"],
+            "path_q_viterbi_stream_info_bits_per_s":
+                report["path_q"]["viterbi"]["info_bits_per_s"],
+            "path_q_turbo_stream_info_bits_per_s": {
+                m: t["info_bits_per_s"]
+                for m, t in report["path_q"]["turbo"].items()},
+            "path_r_info_bits_per_s": {
+                k: v["info_bits_per_s"] for k, v in report["path_r"].items()
+                if "info_bits_per_s" in v},
+            "path_r_fir_msamples_per_s":
+                report["path_r"]["fir_2p22_rrc"]["msamples_per_s"]},
+        "parallel_configs": {
+            "path_p": "MCS-4 F=2048 12 dB, montecarlo_ber(mesh=make_mesh()), "
+                      "world 1, NCCL",
+            "path_q": "Viterbi stream L=2^20 K=7 soft BPSK Eb/N0 3 dB; turbo "
+                      "stream L=6144 RSC (1, 7/5) 8 it Eb/N0 2 dB",
+            "path_r": "ldpc sharded 802.11n 1944 B=512 MSA-15; QC sharded "
+                      "DVB-S2-class 16200 B=512 MSA flooding-15; FIR 2^22"},
         "compatible_api": {
             "wifi80211_mcs4_12db_ber": report["path_o"]["wifi80211"]["ber"],
             "wifi80211_ms_per_chunk":

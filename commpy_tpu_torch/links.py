@@ -184,16 +184,14 @@ class LinkModel:
         calibration matches the host loop.  The full-args (IDD) decoder
         signature is honoured as in ``_transmit``.  Statistics match the
         host loop at round granularity (err_min / send_max early stopping
-        per SNR).  ``mesh`` must be None: the multi-GPU engine is not
-        ported yet.
+        per SNR).  With ``mesh`` (every rank calls this), each round's
+        frames are drawn whole on every rank and split over the ranks
+        (``parallel.montecarlo``): the BERs equal ``mesh=None``'s for the
+        same seed.
         """
         from .ops import channel as _chk
         from .parallel.montecarlo import montecarlo_ber
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= needs the multi-GPU Monte-Carlo engine, which the "
-                "port does not have yet; run on one device with mesh=None")
         dev = self.device
         SNRs = np.asarray(SNRs, dtype=float)
         send_chunk, code_rate = self._round_chunk(
@@ -207,12 +205,13 @@ class LinkModel:
         if is_mimo:
             mean, srt, srr = _chk.kronecker_sqrt_factors(ch.fading_param)
 
-        def link_step(generator, n_frames, noise_std):
+        def link_step(generator, n_frames, noise_std, rows=None):
             msgs = torch.randint(0, 2, (n_frames, send_chunk),
                                  generator=generator, device=dev,
                                  dtype=torch.int8)
             symbs = torch.stack([self.modulate(m) for m in msgs])
             nv = float(noise_std) ** 2
+            mine = range(n_frames)[rows or slice(None)]
             if is_mimo:
                 y, h, _ = _chk.mimo_propagate(
                     generator, symbs.reshape(n_frames, -1, ch.nb_tx),
@@ -224,10 +223,9 @@ class LinkModel:
                 y, h, _ = _chk.siso_propagate(
                     generator, symbs, noise_std, ch.fading_param,
                     ch.isComplex, dev)
-                rx = [self.receive(y[f], h[f], const, nv)
-                      for f in range(n_frames)]
+                rx = {f: self.receive(y[f], h[f], const, nv) for f in mine}
             errs = torch.zeros((), dtype=torch.int32, device=dev)
-            for f in range(n_frames):
+            for f in mine:
                 if full_args_decoder:
                     dec = self.decoder(y[f], h[f], const, nv, rx[f],
                                        ch.nb_tx * nbs)
@@ -248,7 +246,8 @@ class LinkModel:
         res = montecarlo_ber(
             link_step, SNRs, noise_std_fn, send_chunk, seed=seed,
             frames_per_round=frames_per_round, max_rounds=max_rounds,
-            err_min=err_min, device=dev,
+            err_min=err_min, device=dev, mesh=mesh,
+            axis_name=None if mesh is None else mesh.mesh_dim_names[0],
         )
         return res.bers
 

@@ -69,9 +69,12 @@ __all__ = ["DeviceLink", "make_conv_awgn_link", "make_rrc_conv_awgn_link",
 class DeviceLink:
     """A batched link simulation on one device.
 
-    link_step : ``(generator, n_frames, noise_std) -> bit errors`` (int32
-        scalar tensor on ``device``); draws its bits and noise from the
-        ``torch.Generator`` it is given.
+    link_step : ``(generator, n_frames, noise_std, rows=None) -> bit
+        errors`` (int32 scalar tensor on ``device``): ``draw``, then
+        ``transceive`` and the count.  With ``rows`` (a slice of the
+        ``n_frames``), every frame is drawn and only those rows are
+        simulated and counted, so the shards of a round add up to the
+        round exactly (the data-parallel engine's split).
     transceive : ``(bits [F, frame_bits] int8, noise [F, n_symbols]
         complex64, noise_std, *channel) -> decoded bits [F, frame_bits]
         int8``; the deterministic part of ``link_step``.  ``noise`` holds
@@ -108,6 +111,9 @@ class DeviceLink:
         :func:`make_idd_kbest_ldpc_mimo_link`).
     decode : ``receive``'s output -> decoded bits ``[F, frame_bits]``; the
         turbo link's also takes ``noise_std``.
+    draw : ``(generator, n_frames) -> (bits, noise, *channel)``, the
+        random inputs of ``transceive``, drawn from the generator in one
+        fixed order.
     """
 
     link_step: Callable
@@ -119,6 +125,7 @@ class DeviceLink:
     n_symbols: int = 0
     receive: Optional[Callable] = None
     decode: Optional[Callable] = None
+    draw: Optional[Callable] = None
 
 
 def _gen_bits(generator: torch.Generator, n_frames: int, n_bits: int,
@@ -126,6 +133,22 @@ def _gen_bits(generator: torch.Generator, n_frames: int, n_bits: int,
     """Uniform random bits ``[F, n_bits]`` int8."""
     return torch.randint(0, 2, (n_frames, n_bits), generator=generator,
                          device=device, dtype=torch.int8)
+
+
+def _counting_step(draw, transceive):
+    """``link_step`` from a link's ``draw`` and ``transceive``: the bit
+    errors of the frames (of ``rows`` of them, if given)."""
+
+    def link_step(generator, n_frames, noise_std, rows=None):
+        bits, noise, *channel = draw(generator, n_frames)
+        if rows is not None:
+            bits, noise, *channel = (x[rows] for x in (bits, noise,
+                                                       *channel))
+        dec = transceive(bits, noise, noise_std, *channel)
+        with record_function("link.count_errors"):
+            return torch.sum(torch.bitwise_xor(dec, bits), dtype=torch.int32)
+
+    return link_step
 
 
 def make_conv_awgn_link(
@@ -207,21 +230,18 @@ def make_conv_awgn_link(
     def transceive(bits, noise, noise_std):
         return decode(receive(bits, noise, noise_std))
 
-    def link_step(generator, n_frames, noise_std):
-        bits = _gen_bits(generator, n_frames, frame_bits, dev)
-        noise = crandn(generator, (n_frames, n_sym), dev)
-        dec = transceive(bits, noise, noise_std)
-        with record_function("link.count_errors"):
-            return torch.sum(torch.bitwise_xor(dec, bits), dtype=torch.int32)
+    def draw(generator, n_frames):
+        return (_gen_bits(generator, n_frames, frame_bits, dev),
+                crandn(generator, (n_frames, n_sym), dev))
 
     def noise_std_fn(snr_db):
         return snr_to_noise_std(snr_db, code_rate=rate, Es=Es)
 
-    return DeviceLink(link_step, frame_bits, noise_std_fn, name,
+    return DeviceLink(_counting_step(draw, transceive), frame_bits,
+                      noise_std_fn, name,
                       {"rate": rate, "Es": Es, "bps": bps,
                        "trellis": trellis, "decoding_type": decoding_type},
-                      transceive,
-                      n_sym, receive, decode)
+                      transceive, n_sym, receive, decode, draw)
 
 
 def make_turbo_awgn_link(
@@ -273,22 +293,19 @@ def make_turbo_awgn_link(
     def transceive(bits, noise, noise_std):
         return decode(receive(bits, noise, noise_std), noise_std)
 
-    def link_step(generator, n_frames, noise_std):
-        bits = _gen_bits(generator, n_frames, frame_bits, dev)
-        noise = torch.randn((n_frames, frame_bits, 3), generator=generator,
-                            device=dev)
-        dec = transceive(bits, noise, noise_std)
-        with record_function("link.count_errors"):
-            return torch.sum(torch.bitwise_xor(dec, bits), dtype=torch.int32)
+    def draw(generator, n_frames):
+        return (_gen_bits(generator, n_frames, frame_bits, dev),
+                torch.randn((n_frames, frame_bits, 3), generator=generator,
+                            device=dev))
 
     def noise_std_fn(snr_db):
         # real channel: noise_std = sqrt(Es / (rate * snr))
         return snr_to_noise_std(snr_db, code_rate=rate, Es=1.0,
                                 is_complex=False)
 
-    return DeviceLink(link_step, frame_bits, noise_std_fn, name,
-                      {"rate": rate}, transceive, 3 * frame_bits, receive,
-                      decode)
+    return DeviceLink(_counting_step(draw, transceive), frame_bits,
+                      noise_std_fn, name, {"rate": rate}, transceive,
+                      3 * frame_bits, receive, decode, draw)
 
 
 _SQRT_HALF = float(np.sqrt(np.float32(0.5)))
@@ -299,29 +316,30 @@ def _link_parts(name, dev, receive, decode, frame_bits, noise_std_fn,
                 channel_scale=_SQRT_HALF):
     """The ``DeviceLink`` of a link from its two stages.
 
-    ``link_step`` draws the bits, unit complex noise ``[F, *noise_shape]``
+    ``draw`` makes the bits, unit complex noise ``[F, *noise_shape]``
     and, for a link with a channel, ``crandn([F, *channel_shape]) *
-    channel_scale``, and counts the errors of ``transceive`` on them.
+    channel_scale``; ``link_step`` counts the errors of ``transceive`` on
+    them.
     """
 
     def transceive(bits, noise, noise_std, *h):
         return decode(receive(bits, noise, noise_std, *h))
 
-    def link_step(generator, n_frames, noise_std):
+    def draw(generator, n_frames):
         bits = _gen_bits(generator, n_frames, frame_bits, dev)
         noise = crandn(generator, (n_frames,) + noise_shape, dev)
-        h = (() if channel_shape is None else
-             (crandn(generator, (n_frames,) + channel_shape, dev)
-              * channel_scale,))
-        dec = transceive(bits, noise, noise_std, *h)
-        with record_function("link.count_errors"):
-            return torch.sum(torch.bitwise_xor(dec, bits), dtype=torch.int32)
+        if channel_shape is None:
+            return bits, noise
+        return bits, noise, (crandn(generator, (n_frames,) + channel_shape,
+                                    dev) * channel_scale)
 
-    return DeviceLink(link_step, frame_bits, noise_std_fn, name,
+    return DeviceLink(_counting_step(draw, transceive), frame_bits,
+                      noise_std_fn, name,
                       dict(extras, noise_shape=noise_shape,
                            channel_shape=channel_shape,
                            channel_scale=channel_scale),
-                      transceive, int(np.prod(noise_shape)), receive, decode)
+                      transceive, int(np.prod(noise_shape)), receive, decode,
+                      draw)
 
 
 def _constellation(modulation_m, use_psk):

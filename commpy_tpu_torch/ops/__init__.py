@@ -2,8 +2,8 @@
 scrambler, Viterbi decoder, the LDPC family (dense, QC, DVB-S2, NR),
 interleavers, turbo codes, MIMO detection, OFDM, synchronization, RF
 impairments, single-carrier DSP (filters, sequences, FIR, equalizers) and
-the algebraic codes (GF(2^m), BCH, RS, CRC, turbo product codes) and
-polar codes."""
+the algebraic codes (GF(2^m), BCH, RS, CRC, turbo product codes),
+polar codes and the sequence-parallel stream decoders."""
 from . import (
     algebraic,
     bch,
@@ -28,6 +28,7 @@ from . import (
     rs,
     scramble,
     sequences,
+    stream,
     sync,
     tpc,
     trellis,
@@ -41,6 +42,6 @@ __all__ = [
     "algebraic", "bch", "channel", "convcode", "crc", "dvbs2", "equalize",
     "filters", "fir", "galois", "gf2m", "impairments", "interleave", "ldpc",
     "mimo", "modem", "nrldpc", "ofdm", "polar", "qcldpc", "rs", "scramble",
-    "sequences", "sync", "tpc", "trellis", "turbo", "viterbi", "Trellis",
-    "viterbi_decode", "viterbi_decode_device",
+    "sequences", "stream", "sync", "tpc", "trellis", "turbo", "viterbi",
+    "Trellis", "viterbi_decode", "viterbi_decode_device",
 ]

@@ -1,7 +1,6 @@
 """FIR filtering and polyphase resampling on the device.
 
-Counterpart of ``commpy_tpu/ops/fir.py`` (its ``sharded_fir_filter``,
-mesh code, belongs to the multi-GPU slice).  The reference only makes
+Counterpart of ``commpy_tpu/ops/fir.py``.  The reference only makes
 taps (filters.py) and zero-inserts (utilities.py:157); this module is
 the convolution engine the taps plug into:
 
@@ -11,7 +10,10 @@ the convolution engine the taps plug into:
   complex64, as the JAX package does;
 * ``upfirdn``: polyphase upsample -> FIR -> downsample.  The ``up``
   phases of the taps go through one batched FFT over a phase axis and
-  the phase outputs interleave; the up-sampled signal is never formed.
+  the phase outputs interleave; the up-sampled signal is never formed;
+* ``sharded_fir_filter``: causal filtering of a waveform split along time
+  over the ranks of a mesh, with a (t-1)-sample halo from the left
+  neighbour.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 
 from ..utils.device import on_device
 
-__all__ = ["fir_filter", "upfirdn", "pulse_shape"]
+__all__ = ["fir_filter", "upfirdn", "sharded_fir_filter", "pulse_shape"]
 
 
 def _next_pow2(n):
@@ -89,3 +91,31 @@ def upfirdn(x, taps, up: int = 1, down: int = 1, device="cuda"):
 def pulse_shape(symbols, taps, sps: int, device="cuda"):
     """Transmit pulse shaping: upsample by ``sps`` and filter (polyphase)."""
     return upfirdn(symbols, taps, up=sps, device=device)
+
+
+def sharded_fir_filter(x_local, taps, mesh, axis_name: str = "sp"):
+    """Causal FIR over a time-sharded waveform with a halo exchange (SPMD).
+
+    x_local : ``[n_local]`` this rank's shard of the waveform, on the
+        mesh's device type; n_local >= t - 1.
+    Each rank convolves its shard plus the last (t-1) samples of its left
+    neighbour, received by a ring shift (zeros on rank 0): the
+    overlap-save boundary exchange; nothing gathers the whole signal.
+
+    Returns this rank's shard of ``y[i] = sum_k h[k] x[i-k]``, so the
+    shards together are ``fir_filter(x, taps, 'full')[:n]``.
+    """
+    from ..parallel.mesh import axis_index, check_axis, ppermute
+
+    check_axis(mesh, axis_name)
+    x = on_device(x_local, mesh.device_type)
+    taps = on_device(taps, x.device)
+    t, n = taps.shape[0], x.shape[-1]
+    if t - 1 > n:
+        raise ValueError(f"{t} taps need shards of at least {t - 1} samples")
+    halo = ppermute(x[n - (t - 1):], mesh, 1)
+    if axis_index(mesh) == 0:
+        halo = torch.zeros_like(halo)
+    y = fir_filter(torch.cat([halo, x]), taps, "full", device=x.device)
+    # the samples whose window lies wholly inside the extended shard
+    return y[t - 1:t - 1 + n]

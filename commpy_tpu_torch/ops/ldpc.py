@@ -14,7 +14,9 @@ Counterpart of ``commpy_tpu/ops/ldpc.py``:
   state freezes converged blocks;
 * ``backend='auto'`` lifts quasi-cyclic codes (every shipped WiMAX
   design) onto :func:`~commpy_tpu_torch.ops.qcldpc.qc_bp_decode_device`
-  and its kernels.
+  and its kernels;
+* ``ldpc_bp_decode_sharded`` splits one graph's check rows over the
+  ranks of a mesh.
 
 Decoded outputs match the reference: hard word via signbit, posterior
 LLRs, one block per column (Fortran order) in the host API.
@@ -29,6 +31,7 @@ import scipy.sparse.linalg as splg
 import torch
 
 from ..kernels.qc_bp import sign_keep_zero
+from ..parallel.mesh import axis_index, axis_size, check_axis, psum
 from ..utils.device import on_device
 from .qcldpc import _loo_prod
 
@@ -40,6 +43,7 @@ __all__ = [
     "triang_ldpc_systematic_encode",
     "ldpc_bp_decode",
     "ldpc_bp_decode_device",
+    "ldpc_bp_decode_sharded",
     "ldpc_encode_device",
 ]
 
@@ -238,19 +242,25 @@ def triang_ldpc_systematic_encode(message_bits, ldpc_code_params, pad=True,
 # --------------------------------------------------------------------------
 
 def _bp_core(llr, cmask, Ainc, algorithm: str, n_iters: int,
-             msa_scale: float = 1.0, msa_offset: float = 0.0):
+             msa_scale: float = 1.0, msa_offset: float = 0.0, mesh=None):
     """Belief propagation over the padded Tanner edge arrays.
 
     llr ``[B, n_v]``; cmask ``[n_c, cd]`` valid-edge mask; Ainc
     ``[n_c*cd, n_v]`` float32 one-hot, edge e -> its variable node.  The
     permutations are products with Ainc (``torch.matmul``), whose sums
     of a node's few messages may round in another order than XLA's.
+
+    With ``mesh`` (edge-sharded, SPMD), cmask and Ainc hold only this
+    rank's check rows: the variable-node sums and the convergence test
+    are completed by all-reduce, and llr and the outputs are the same on
+    every rank.
     """
     B, n_v = llr.shape
     n_c, cd = cmask.shape
 
     def to_vnodes(edge_vals):  # [B, n_c, cd] -> [B, n_v]
-        return edge_vals.reshape(B, n_c * cd) @ Ainc
+        out = edge_vals.reshape(B, n_c * cd) @ Ainc
+        return out if mesh is None else psum(out, mesh)
 
     def to_edges(vnode_vals):  # [B, n_v] -> [B, n_c, cd]
         return (vnode_vals @ Ainc.T).reshape(B, n_c, cd)
@@ -261,7 +271,8 @@ def _bp_core(llr, cmask, Ainc, algorithm: str, n_iters: int,
     def syndrome_ok(dec):
         par = torch.sum(torch.where(cmask, to_edges(dec.to(torch.float32)),
                                     0.0), dim=-1)
-        return ~torch.any(torch.remainder(par, 2.0) != 0, dim=-1)
+        bad = torch.any(torch.remainder(par, 2.0) != 0, dim=-1)
+        return ~(bad if mesh is None else psum(bad, mesh))
 
     def cn_update(v2c):
         if algorithm == "SPA":
@@ -404,6 +415,50 @@ def ldpc_bp_decode_device(llr, ldpc_code_params, decoder_algorithm,
     if squeeze:
         return dec[0], out_llr[0]
     return dec, out_llr
+
+
+def ldpc_bp_decode_sharded(llr, ldpc_code_params, decoder_algorithm,
+                           n_iters, mesh, axis_name: str = "dp"):
+    """Edge-sharded BP decode: one Tanner graph split over the mesh (SPMD).
+
+    The check rows (and their edges) are split over the ranks of
+    ``mesh``, padded with all-masked rows (always-satisfied checks) to a
+    multiple of its size; each rank updates its own rows, and the
+    variable-node sums and the convergence test are completed by
+    all-reduce (the tensor-parallel decoder).  llr ``[..., n_vnodes]``
+    and the outputs are the same on every rank.  The per-node sums add
+    the ranks' partials, so posteriors may round otherwise than the
+    one-device decode.
+    """
+    if decoder_algorithm not in ("SPA", "MSA"):
+        raise NameError(
+            'Please input a valid decoder_algorithm string '
+            '(meanning "SPA" or "MSA").'
+        )
+    check_axis(mesh, axis_name)
+    x = on_device(llr, mesh.device_type).to(torch.float32)
+    squeeze = x.ndim == 1
+    if squeeze:
+        x = x[None]
+    lead = x.shape[:-1]
+    x = torch.clamp(x.reshape(-1, x.shape[-1]), -_llr_max, _llr_max)
+    cmask, Ainc = _edge_arrays(ldpc_code_params, x.device)
+    D, r = axis_size(mesh), axis_index(mesh)
+    n_c, cd = cmask.shape
+    rows = -(-n_c // D)  # check rows a rank; the padding rows are masked
+    lo, hi = min(r * rows, n_c), min((r + 1) * rows, n_c)
+    cm = torch.zeros((rows, cd), dtype=torch.bool, device=x.device)
+    cm[:hi - lo] = cmask[lo:hi]
+    ai = torch.zeros((rows * cd, Ainc.shape[1]), dtype=torch.float32,
+                     device=x.device)
+    ai[:(hi - lo) * cd] = Ainc[lo * cd:hi * cd]
+    dec, out = _bp_core(x, cm, ai, decoder_algorithm, int(n_iters),
+                        mesh=mesh)
+    dec = dec.reshape(lead + dec.shape[-1:])
+    out = out.reshape(lead + out.shape[-1:])
+    if squeeze:
+        return dec[0], out[0]
+    return dec, out
 
 
 def ldpc_bp_decode(llr_vec, ldpc_code_params, decoder_algorithm, n_iters,

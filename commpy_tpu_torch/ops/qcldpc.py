@@ -21,6 +21,8 @@ of the Z axis.
   does, else the plain PyTorch core ``_qc_bp_core`` (the
   counterpart of the JAX package's XLA core, on the ``[B, Mb, Z, K]``
   edge tensor).  The kernels live in ``kernels/qc_bp.py``.
+* :func:`qc_bp_decode_sharded` splits one graph's circulant axis over the
+  ranks of a mesh (flooding, the plain core's arithmetic).
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ import torch
 
 from ..kernels.qc_bp import (LLR_MAX, qc_bp_resident, qc_bp_streamed,
                              resident_plan, sign_keep_zero, streamed_plan)
+from ..parallel.mesh import (NamedSharding, P, axis_index, axis_size,
+                             check_axis, ppermute, psum)
 from ..utils.device import device_constant, on_device, resolve_device
 
 __all__ = [
@@ -44,6 +48,7 @@ __all__ = [
     "qc_encoder",
     "qc_encode_device",
     "qc_bp_decode_device",
+    "qc_bp_decode_sharded",
     "select_backend",
     "qc_rows",
     "IEEE80211N_BASE",
@@ -587,6 +592,21 @@ def _loo_min(mag, mask):
                      -1)
 
 
+def _cn_update(v2c, m, algorithm, msa_scale, msa_offset):
+    """Check-node update over the last axis (K) of the edge tensor, where
+    ``m`` marks the edges: SPA, or normalised/offset min-sum (plain MSA
+    at (1, 0) exactly)."""
+    if algorithm == "SPA":
+        t = torch.tanh(v2c * 0.5)
+        prod = _loo_prod(t, m)
+        msg = 2.0 * torch.atanh(torch.clamp(prod, -1.0, 1.0))
+        return torch.clamp(msg, -_llr_max, _llr_max)
+    sign = _loo_prod(sign_keep_zero(v2c), m)
+    loo = _loo_min(torch.abs(v2c), m)
+    mag = torch.clamp_min(msa_scale * loo - msa_offset, 0.0)
+    return torch.where(m, sign * mag, 0.0)
+
+
 @functools.lru_cache(maxsize=64)
 def _core_index(Mb: int, Nb: int, Z: int, K: int, block_j: tuple,
                 block_s: tuple):
@@ -666,16 +686,7 @@ def _qc_bp_core(llr, meta, algorithm: str, n_iters: int,
         return acc
 
     def cn_update(v2c, m=mask):
-        if algorithm == "SPA":
-            t = torch.tanh(v2c * 0.5)
-            prod = _loo_prod(t, m)
-            msg = 2.0 * torch.atanh(torch.clamp(prod, -1.0, 1.0))
-            return torch.clamp(msg, -_llr_max, _llr_max)
-        sign = _loo_prod(sign_keep_zero(v2c), m)
-        loo = _loo_min(torch.abs(v2c), m)
-        # normalised/offset min-sum: plain MSA at (1, 0) exactly
-        mag = torch.clamp_min(msa_scale * loo - msa_offset, 0.0)
-        return torch.where(m, sign * mag, 0.0)
+        return _cn_update(v2c, m, algorithm, msa_scale, msa_offset)
 
     def total_llr(c2v):
         return llr + to_vnodes(torch.where(mask, c2v, 0.0))
@@ -722,6 +733,135 @@ def _qc_bp_core(llr, meta, algorithm: str, n_iters: int,
         act = act & ~syndrome_ok(dec)
         it += 1
     return dec.reshape(B, Nb * Z), out.reshape(B, Nb * Z)
+
+
+# --------------------------------------------------------------------------
+# Decoding: one graph's circulant axis split over the ranks of a mesh
+# --------------------------------------------------------------------------
+
+def _dist_roll(x, r: int, Z: int, mesh):
+    """Global cyclic roll by ``r`` of a Z axis split over the ranks of
+    ``mesh`` (local length ``Zl = Z/D``), SPMD.
+
+    ``out[z] = x_global[(z + r) % Z]``.  With ``r = q*Zl + t``, rank d's
+    slice needs elements of shards d+q and d+q+1: two ring shifts of the
+    local tile and a local re-split (one shift when t == 0; none when q
+    is a multiple of D).  x: ``[..., Zl]``.
+    """
+    D = axis_size(mesh)
+    Zl = Z // D
+    q, t = divmod(r % Z, Zl)
+    a = ppermute(x, mesh, -q) if q % D else x
+    if t == 0:
+        return a
+    b = ppermute(x, mesh, -(q + 1))
+    return torch.cat([a[..., t:], b[..., :t]], dim=-1)
+
+
+def qc_bp_decode_sharded(llr, qc_params: dict, decoder_algorithm: str,
+                         n_iters: int, mesh, axis_name: str = "dp",
+                         msa_scale: float = 1.0, msa_offset: float = 0.0):
+    """Tensor-parallel QC BP: ONE Tanner graph split over the ranks of
+    ``mesh`` along the circulant (Z) axis (SPMD).
+
+    Every message tensor holds ``Z/D`` circulant positions a rank (memory
+    and check-node work E/D each); the variable-node totals are
+    positionwise on Z and need no collective; each circulant roll is at
+    most two ring shifts (:func:`_dist_roll`); the only reduction is the
+    convergence flag, one all-reduce of a [B] byte an iteration.  llr
+    ``[..., n]`` is the same on every rank, and so are the outputs
+    (gathered along Z at the end).
+
+    Flooding schedule only (the layered sweep is serial across block
+    rows); requires ``Z % n_devices == 0``.  The arithmetic is the plain
+    flooding core's (``backend='torch'``), operation for operation.
+    """
+    if decoder_algorithm not in ("SPA", "MSA"):
+        raise NameError(
+            'Please input a valid decoder_algorithm string '
+            '(meanning "SPA" or "MSA").'
+        )
+    if (msa_scale, msa_offset) != (1.0, 0.0) and decoder_algorithm != "MSA":
+        raise ValueError("msa_scale/msa_offset apply to MSA only")
+    check_axis(mesh, axis_name)
+    Mb, Nb = qc_params["Mb"], qc_params["Nb"]
+    Z, K = qc_params["Z"], qc_params["K"]
+    D, idx = axis_size(mesh), axis_index(mesh)
+    if Z % D:
+        raise ValueError(
+            f"Z-sharded decode needs Z % n_devices == 0 (Z={Z}, D={D}); "
+            "shard the batch axis instead for this code"
+        )
+    Zl = Z // D
+    bj = np.asarray(qc_params["block_j"])
+    sj = np.asarray(qc_params["block_s"])
+    valid = bj >= 0
+
+    x = on_device(llr, mesh.device_type).to(torch.float32)
+    squeeze = x.ndim == 1
+    if squeeze:
+        x = x[None]
+    lead = x.shape[:-1]
+    x = torch.clamp(x.reshape(-1, Nb, Z), -_llr_max, _llr_max)
+    B = x.shape[0]
+    dev = x.device
+    xs = x[..., idx * Zl:(idx + 1) * Zl]
+
+    pm = np.ones((Mb, Z, K), bool)
+    for (i, k, excluded) in qc_params.get("pos_masks", ()):
+        pm[i, list(excluded), k] = False
+    pm &= valid[:, None, :]
+    m = device_constant(pm[:, idx * Zl:(idx + 1) * Zl], dev)[None]
+    zero = torch.zeros((B, Zl), dtype=torch.float32, device=dev)
+
+    def to_edges(v):  # [B, Nb, Zl] -> [B, Mb, Zl, K]
+        return torch.stack([
+            torch.stack([_dist_roll(v[:, bj[i, k]], int(sj[i, k]) % Z, Z,
+                                    mesh) if valid[i, k] else zero
+                         for i in range(Mb)], dim=1)
+            for k in range(K)], dim=-1)
+
+    def to_vnodes(e):  # [B, Mb, Zl, K] -> [B, Nb, Zl], row-major order
+        acc = [zero] * Nb
+        for i in range(Mb):
+            for k in range(K):
+                if valid[i, k]:
+                    acc[bj[i, k]] = acc[bj[i, k]] + _dist_roll(
+                        e[:, i, :, k], -int(sj[i, k]) % Z, Z, mesh)
+        return torch.stack(acc, dim=1)
+
+    def total_llr(c2v):
+        return xs + to_vnodes(torch.where(m, c2v, 0.0))
+
+    def active(dec):
+        par = torch.sum(torch.where(m, to_edges(dec.to(torch.float32)),
+                                    0.0), dim=-1)  # [B, Mb, Zl]
+        bad = torch.any(torch.remainder(par, 2.0) != 0, dim=-1).any(-1)
+        # a frame is active while ANY shard still sees a violation
+        return psum(bad, mesh)
+
+    dec = torch.signbit(xs).to(torch.int8)
+    c2v = torch.zeros((B, Mb, Zl, K), dtype=torch.float32, device=dev)
+    out = xs
+    act = active(dec)
+    it = 0
+    while it < n_iters and bool(act.any()):
+        v2c = torch.where(m, to_edges(total_llr(c2v)) - c2v, 0.0)
+        new_c2v = _cn_update(v2c, m, decoder_algorithm, msa_scale,
+                             msa_offset)
+        new_total = total_llr(new_c2v)
+        new_dec = torch.signbit(new_total).to(torch.int8)
+        c2v = torch.where(act[:, None, None, None], new_c2v, c2v)
+        out = torch.where(act[:, None, None], new_total, out)
+        dec = torch.where(act[:, None, None], new_dec, dec)
+        act = act & active(dec)
+        it += 1
+    whole = NamedSharding(mesh, P(None, None, axis_name))
+    dec = whole.gather(dec).reshape(lead + (Nb * Z,))
+    out = whole.gather(out).reshape(lead + (Nb * Z,))
+    if squeeze:
+        return dec[0], out[0]
+    return dec, out
 
 
 # --------------------------------------------------------------------------

@@ -1,14 +1,20 @@
-"""Monte-Carlo BER engine on one device.
+"""Monte-Carlo BER engine, on one device or data-parallel over a mesh.
 
-Counterpart of ``commpy_tpu/parallel/montecarlo.py`` without the device
-mesh.  The reference's serial ``while bit_send < send_max and bit_err <
-err_min`` loop (links.py:313-338) becomes rounds: each round simulates
+Counterpart of ``commpy_tpu/parallel/montecarlo.py``.  The reference's
+serial ``while bit_send < send_max and bit_err < err_min`` loop
+(links.py:313-338) becomes rounds: each round simulates
 ``frames_per_round`` frames at every still-active SNR point, and the host
 only takes the stopping decision between rounds.
 
 Randomness: the frames of round r at SNR index i are drawn from a
 ``torch.Generator`` on the device seeded from (seed, r, i), so a resumed
-sweep repeats exactly the rounds it would have run.
+sweep repeats exactly the rounds it would have run.  With a mesh of D
+ranks each rank draws the round's F frames from that same generator and
+simulates rows ``[r*F/D, (r+1)*F/D)`` of them (``link_step(..., rows=)``),
+and the tallies are summed over the ranks (one all-reduce a round): a
+round's tallies do not depend on the mesh, and every rank takes the same
+stopping decision.  The draw is repeated on every rank; it costs little
+next to a decode.
 """
 from __future__ import annotations
 
@@ -21,8 +27,10 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..utils.device import resolve_device
+from .mesh import DeviceMesh, axis_index, axis_size, check_axis, psum
 
 __all__ = ["MonteCarloResult", "montecarlo_ber", "make_round_fn"]
 
@@ -49,21 +57,44 @@ def _round_generator(seed: int, rnd: int, snr_index: int,
 
 
 def make_round_fn(link_step: Callable, noise_stds: Sequence[float],
-                  frames_per_round: int, device="cuda"):
+                  frames_per_round: int, device="cuda",
+                  mesh: Optional[DeviceMesh] = None, axis_name: str = "dp"):
     """Build ``round_fn(seed, rnd) -> bit errors [n_snr]`` (NumPy int64).
 
     ``link_step(generator, n_frames, noise_std) -> bit errors`` (a scalar
     tensor).  All SNR points of a round are queued on the device and read
-    back with one synchronisation.
+    back with one synchronisation.  With a ``mesh`` (this rank's, the
+    frame axis split over its ``axis_name``), ``link_step`` must also take
+    ``rows``, a slice of the frames: it draws all ``n_frames`` and
+    simulates and counts only those rows (as every
+    :class:`~commpy_tpu_torch.models.DeviceLink` does); the counts are
+    summed over the ranks.
     """
     dev = resolve_device(device)
     noise_stds = [float(np.float32(ns)) for ns in noise_stds]
+    rows = None
+    if mesh is not None:
+        check_axis(mesh, axis_name)
+        n_dev = axis_size(mesh)
+        if frames_per_round % n_dev:
+            raise ValueError(
+                f"frames_per_round ({frames_per_round}) must be a multiple "
+                f"of the mesh size ({n_dev})")
+        per = frames_per_round // n_dev
+        r = axis_index(mesh)
+        rows = slice(r * per, (r + 1) * per)
 
     def round_fn(seed: int, rnd: int) -> np.ndarray:
-        errs = [link_step(_round_generator(seed, rnd, i, dev),
-                          frames_per_round, ns)
-                for i, ns in enumerate(noise_stds)]
-        return torch.stack(errs).cpu().numpy().astype(np.int64)
+        gens = [_round_generator(seed, rnd, i, dev)
+                for i in range(len(noise_stds))]
+        if rows is None:
+            errs = torch.stack([link_step(g, frames_per_round, ns)
+                                for g, ns in zip(gens, noise_stds)])
+        else:
+            errs = psum(torch.stack(
+                [link_step(g, frames_per_round, ns, rows=rows)
+                 for g, ns in zip(gens, noise_stds)]).to(torch.int64), mesh)
+        return errs.cpu().numpy().astype(np.int64)
 
     round_fn.frames_per_round = frames_per_round
     round_fn.noise_stds = np.asarray(noise_stds)
@@ -84,6 +115,8 @@ def montecarlo_ber(
     checkpoint_path: Optional[str] = None,
     round_fn: Optional[Callable] = None,
     device="cuda",
+    mesh: Optional[DeviceMesh] = None,
+    axis_name: str = "dp",
 ) -> MonteCarloResult:
     """Run the BER sweep with err_min / send_max early stopping.
 
@@ -99,16 +132,20 @@ def montecarlo_ber(
     seed : integer seed of the sweep's generators
     checkpoint_path : optional JSON file; tallies and the round counter are
         written after every round and the sweep resumes from the file if it
-        exists.
+        exists.  With a mesh, rank 0 reads and writes it and hands what it
+        read to the other ranks.
     round_fn : optional prebuilt :func:`make_round_fn` result for this
         configuration.
     device : where the frames are simulated (default ``"cuda"``).
+    mesh, axis_name : split each round's frames over the ranks of
+        ``mesh`` (see :func:`make_round_fn`); every rank calls the sweep
+        and returns the same result.
     """
     snrs_db = np.atleast_1d(np.asarray(snrs_db, float))
     noise_stds = np.asarray([float(noise_std_fn(s)) for s in snrs_db])
     if round_fn is None:
         round_fn = make_round_fn(link_step, noise_stds, frames_per_round,
-                                 device)
+                                 device, mesh, axis_name)
     else:
         fpr = getattr(round_fn, "frames_per_round", None)
         if fpr is not None and fpr != frames_per_round:
@@ -130,9 +167,18 @@ def montecarlo_ber(
     tot_bits = np.zeros(n_snr)
     active = np.ones(n_snr, bool)
     start_round = 0
-    if checkpoint_path and os.path.exists(checkpoint_path):
+    writer = mesh is None or axis_index(mesh) == 0
+    st = None
+    if checkpoint_path and writer and os.path.exists(checkpoint_path):
         with open(checkpoint_path) as f:
             st = json.load(f)
+    if checkpoint_path and mesh is not None:
+        box = [st]
+        group = mesh.get_group()
+        dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                                   group=group)
+        st = box[0]
+    if st is not None:
         if st["snrs_db"] == list(map(float, snrs_db)):
             tot_err = np.asarray(st["bit_errors"], float)
             tot_bits = np.asarray(st["bits_sent"], float)
@@ -156,7 +202,7 @@ def montecarlo_ber(
         logger.info("round %d: %d/%d SNR points active, %.3g bits/s",
                     rounds, int(active.sum()), n_snr,
                     n_snr * bits_per_round / dt)
-        if checkpoint_path:
+        if checkpoint_path and writer:
             tmp = checkpoint_path + ".tmp"
             with open(tmp, "w") as f:
                 json.dump({

@@ -380,8 +380,13 @@ def test_link_performance_device_uncoded_qpsk_against_theory():
                                          frames_per_round=16)
     theory = erfc(np.sqrt(10 ** (snrs / 10) / 2)) / 2
     np.testing.assert_allclose(bers, theory, rtol=0.25)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        model.link_performance_device(snrs, 1000, 10, mesh=object())
+    # over a mesh (one rank here): each round's frames split over the
+    # ranks, the same BERs as without a mesh for the same seed
+    from commpy_tpu_torch.parallel import make_mesh
+    meshed = model.link_performance_device(snrs, 64_000, 500, 1000,
+                                           frames_per_round=16,
+                                           mesh=make_mesh(1, device=CPU))
+    np.testing.assert_array_equal(meshed, bers)
 
 
 def test_wifi80211_link_performance_matches_batched_link():

@@ -1,16 +1,17 @@
-"""What ``commpy_tpu_torch.ops``, ``.models`` and ``.utils`` export,
-held against ``commpy_tpu``.
+"""What ``commpy_tpu_torch.ops``, ``.models``, ``.utils`` and ``.parallel``
+export, held against ``commpy_tpu``.
 
 Every name the JAX package's ``ops.__all__`` lists is exported by the
-port, except the modules the port has not reached yet (ROADMAP.md,
-queue 1: the multi-GPU streams); the port may list more of its own
-submodules.  The port's ``models.__all__`` holds all 15 link factories
-of the JAX package's models and the device IDD loop, and nothing the
-JAX package's models do not define.  The port's ``utils`` exports the
-profiling helpers of ``commpy_tpu.utils.profiling``.  Importing the
-port's ``ops``, or the port with its CommPy-compatible modules, loads no
-``jax`` and no ``commpy_tpu``.
+port (all 29 ``ops`` modules are ported); the port may list more of its
+own submodules.  The port's ``parallel.__all__`` is the JAX package's.
+The port's ``models.__all__`` holds all 15 link factories of the JAX
+package's models and the device IDD loop, and nothing the JAX package's
+models do not define.  The port's ``utils`` exports the profiling
+helpers of ``commpy_tpu.utils.profiling``.  Importing the port's
+``ops``, or the port with its CommPy-compatible modules and its
+``parallel`` package, loads no ``jax`` and no ``commpy_tpu``.
 """
+import importlib
 import importlib.util
 import subprocess
 import sys
@@ -21,17 +22,17 @@ import pytest
 import commpy_tpu.models as jmodels
 import commpy_tpu.models.device_links as jlinks
 import commpy_tpu.ops as jops
+import commpy_tpu.parallel as jparallel
 import commpy_tpu.utils.profiling as jprofiling
 
 import commpy_tpu_torch.models as models
 import commpy_tpu_torch.ops as ops
+import commpy_tpu_torch.parallel as parallel
 import commpy_tpu_torch.utils as utils
 
-# modules of commpy_tpu.ops the port has not ported yet, by ROADMAP.md
-# queue 1 item: multi-GPU streams
-NOT_PORTED = {
-    "stream",
-}
+# modules of commpy_tpu.ops the port has not ported yet (ROADMAP.md,
+# queue 1): none
+NOT_PORTED = set()
 NEW_FACTORIES = {"make_rrc_conv_awgn_link", "make_isi_conv_link",
                  "make_bch_awgn_link", "make_rs_awgn_link",
                  "make_dvbs2_concat_link", "make_polar_awgn_link",
@@ -60,7 +61,9 @@ def test_ops_exports_what_the_port_has_ported():
     "commpy_tpu_torch.ops",
     "commpy_tpu_torch, commpy_tpu_torch.links, commpy_tpu_torch.wifi80211, "
     "commpy_tpu_torch.channelcoding, commpy_tpu_torch.utilities, "
-    "commpy_tpu_torch.models, commpy_tpu_torch.utils.profiling"])
+    "commpy_tpu_torch.models, commpy_tpu_torch.utils.profiling",
+    "commpy_tpu_torch.parallel, commpy_tpu_torch.parallel.dryrun, "
+    "commpy_tpu_torch.ops.stream"])
 def test_ops_import_loads_no_jax(mods):
     code = (f"import sys, {mods}\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -70,6 +73,18 @@ def test_ops_import_loads_no_jax(mods):
     run = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert run.returncode == 0, run.stdout + run.stderr
+
+
+def test_parallel_exports_the_jax_packages_names():
+    assert parallel.__all__ == jparallel.__all__
+    for name in parallel.__all__:
+        assert hasattr(parallel, name), name
+    assert set(ops.stream.__all__) == set(jops.stream.__all__)
+    assert set(ops.fir.__all__) == set(jops.fir.__all__)
+    for mod in ("ldpc", "qcldpc"):
+        jmod = importlib.import_module(f"commpy_tpu.ops.{mod}")
+        assert {n for n in jmod.__all__ if "sharded" in n} <= \
+            set(getattr(ops, mod).__all__)
 
 
 def test_models_export_the_ported_link_factories():
