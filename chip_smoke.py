@@ -55,7 +55,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    T = 1, 2 and 3, odd T and R not a multiple of 32 (the plain version
    also on the host CPU for max-log and linear), both history placements
    (shared and device memory) where they fit, S = 16 at T = 320 (device
-   memory), and the three bench shapes;
+   memory), and the three bench shapes; and with ``renorm_every`` 1, 2
+   and 4 (S = 2 to 16, masked and boundary, T = 1, 3 and 33, both history
+   placements), every value bit for bit, log-MAP included;
 9. Path C: the rate-1/3 turbo link (LTE's L=6144, 4-state RSC,
    ``RandInterlv(6144, 0)``, 8 iterations, NII windows (128, 0)) at F=256
    frames per step at Eb/N0 1.0 dB through ``montecarlo_ber``, with K3's
@@ -154,15 +156,25 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``viterbi_decode_device`` on its window and ten times under uncoded
    BPSK, K1 and K2 held to their plain versions on a 4,096-bit stream, and
    the turbo stream (L=6144, 4-state RSC, 8 iterations, Eb/N0 2 dB, 8
-   frames) in both ``boundary_init`` modes under BER 1e-4, K3 held to its
-   plain version on every MAP pass of one decode in each mode and its
-   first pass compared with ``_bcjr_masked``; R, the edge-sharded LDPC
+   frames) in both ``boundary_init`` modes under BER 1e-4, K3 (which the
+   stream runs renormalising every step) held to its plain version
+   bit for bit on every MAP pass of one decode in each mode, and each
+   pass within 1e-5 (1 + |x|) and 4 eps Gamma of ``_bcjr_masked``, no
+   sign flip past either; R, the edge-sharded LDPC
    decoder on Path A's LLRs (802.11n 1944, B=512, MSA-15) equal to the
    dense decode, the Z-sharded DVB-S2-class decoder (B=512, MSA
    flooding-15) equal to the plain flooding core, the sharded FIR on 2^22
    samples with Path H's RRC taps within 1e-5 of ``fir_filter``, and a
    one-stage ``pipeline_map`` of four link stages equal to their serial
    composition; each timed and profiled;
+15. (run after 14) the examples: each ``examples/torch`` script's
+   ``main(device="cuda")`` at its default size, the kernel counts set to
+   0 just before and read just after, its wall time, the checks of
+   ``tests/test_torch_examples.py`` (the scripts of NumPy draws against
+   the same script on the host), and one K1/K2 call and two K3 calls
+   (the turbo decoder's and the renormalising stream's) recorded from
+   the scripts held to their plain versions; all five kernels must be
+   launched;
 
 With ``--ab DIR`` (a checkout of another commit, e.g. the parent unpacked
 with ``git archive``), it also loads that checkout's ``commpy_tpu_torch``
@@ -985,17 +997,18 @@ def k3_call(torch, syn, pan, li, trellis, hist=None, **kw):
     if hist is None:
         return BK.bcjr_appdiff(syn, pan, li, trellis, **kw)
     args = dict(max_log=False, valid=None, first=None, io_dtype="f32",
-                boundary=None, lse=None, combined=False)
+                boundary=None, lse=None, combined=False, renorm_every=0)
     args.update({k: v for k, v in kw.items() if k in args})
     mode, _, *streams = BK._prepare(syn, pan, li, trellis, *args.values())
     T, R = syn.shape
     plan = BK.bcjr_plan(T, trellis.number_states, R, hist=hist)
     return BK._bcjr_launch(trellis, mode, *streams, li, args["boundary"],
-                           kw.get("posterior", False), plan)
+                           kw.get("posterior", False), plan,
+                           args["renorm_every"])
 
 
 def k3_compare(torch, tally, trellis, S, T, R, mode, variant, io, combined,
-               posterior, seed, on_cpu, hists=(None,)):
+               posterior, seed, on_cpu, hists=(None,), renorm_every=0):
     """K3 (by its own plan, or with each history placement of ``hists``)
     and its plain version on the card (and, for max-log and linear when
     ``on_cpu``, the plain version on the host) on the same inputs."""
@@ -1005,7 +1018,8 @@ def k3_compare(torch, tally, trellis, S, T, R, mode, variant, io, combined,
     syn, pan, li, vkw = k3_inputs(torch, S, T, R, variant, seed, dev)
     kw = dict(vkw, max_log=mode == "maxlog",
               lse="linear" if mode == "linear" else None, io_dtype=io,
-              combined=combined, posterior=posterior)
+              combined=combined, posterior=posterior,
+              renorm_every=renorm_every)
     want = BK.bcjr_appdiff_plain(syn, pan, li, trellis, **kw)
     want = want if isinstance(want, tuple) else (want,)
     bad = 0
@@ -1023,7 +1037,8 @@ def k3_compare(torch, tally, trellis, S, T, R, mode, variant, io, combined,
     if bad:
         fail(f"bcjr_appdiff disagrees with its plain version: {bad} values "
              f"at S={S}, T={T}, R={R}, {mode}, {variant}, io={io}, "
-             f"combined={combined}, posterior={posterior}, hist={hists}")
+             f"combined={combined}, posterior={posterior}, hist={hists}, "
+             f"renorm_every={renorm_every}")
 
 
 K3_BENCH = {  # (T, R, variant) of the three JAX bench decoders' K3 calls
@@ -1094,15 +1109,38 @@ def k3_parity(torch, tally, trellises):
                    "masked", "f32", True, True, seed, False)
 
 
-def k3_bound(T, R, S, mode, variant, io_bytes=4):
+def k3_renorm_parity(torch, tally, trellises):
+    """K3 with ``renorm_every`` 1, 2 and 4 against its plain version at
+    the same period: S = 2, 4, 8 and 16, the masked and boundary variants,
+    T = 1, 3 (below the period 4) and 33 (odd, the halves 16 and 17 steps),
+    R = 45 (a block's tail lanes dead), the three lse2 modes in turn,
+    both history placements.  Every value must match bit for bit, log-MAP
+    too (``tally.bit_diffs``)."""
+    modes = ("exact", "maxlog", "linear")
+    ios = [("f32", False, False), ("bf16", True, False), ("f32", True, True)]
+    seed = 4500
+    for S, tr in trellises[:4]:
+        for N in (1, 2, 4):
+            for variant in ("masked", "boundary"):
+                for T in (1, 3, 33):
+                    seed += 1
+                    io, comb, post = ios[seed % 3]
+                    k3_compare(torch, tally, tr, S, T, 45, modes[seed % 3],
+                               variant, io, comb, post, seed, False,
+                               ("shared", "global"), renorm_every=N)
+
+
+def k3_bound(T, R, S, mode, variant, io_bytes=4, renorm_every=0):
     """Least time of one K3 pass: the streams (w1, w2, li) read once and e
     written once (the masks, and the boundary metrics in and out, too);
     per lane and step 6S + 9 adds and subtracts (branch metrics with the
     prior, candidates, APP terms, e) and 4S - 2 lse2 of LSE2_FLOPS float
     operations each, plus an exp and a log1p each in log-MAP on the
-    special-function units.  Returns (bytes, float operations, special
-    operations, history bytes): this design's alpha history, written and
-    read once, is reported beside it as ``store_bound_ms``."""
+    special-function units.  With ``renorm_every`` N, each recursion also
+    takes a lane's maximum (S - 1 max) and subtracts it (S) every N steps.
+    Returns (bytes, float operations, special operations, history bytes):
+    this design's alpha history, written and read once, is reported beside
+    it as ``store_bound_ms``."""
     steps = T * R
     nbytes = 4 * steps * io_bytes
     if variant == "masked":
@@ -1111,6 +1149,8 @@ def k3_bound(T, R, S, mode, variant, io_bytes=4):
         nbytes += 4 * S * R * 4
     n_lse = 4 * S - 2
     flops = steps * (6 * S + 9 + n_lse * LSE2_FLOPS[mode])
+    if renorm_every:
+        flops += 2 * (T // renorm_every) * R * (2 * S - 1)
     sfu = 2 * steps * n_lse if mode == "exact" else 0
     return nbytes, flops, sfu, 2 * steps * S * 4
 
@@ -2423,16 +2463,18 @@ def stack_k3_calls(torch, BK, calls):
     return got, want if isinstance(want, tuple) else (want,)
 
 
-def record_calls(module, names, fn):
-    """Run ``fn`` with each ``module.name`` wrapped to record its calls:
-    returns {name: [(args, kwargs, output), ...]}."""
+def record_calls(module, names, fn, keep=None):
+    """Run ``fn`` with each ``module.name`` wrapped to record its calls
+    (the first ``keep`` of each, or all): returns {name: [(args, kwargs,
+    output), ...]}."""
     calls = {name: [] for name in names}
     real = {name: getattr(module, name) for name in names}
 
     def recorder(name):
         def call(*a, **kw):
             out = real[name](*a, **kw)
-            calls[name].append((a, kw, out))
+            if keep is None or len(calls[name]) < keep:
+                calls[name].append((a, kw, out))
             return out
         return call
 
@@ -2476,13 +2518,15 @@ def stream_k1_k2_full(torch, calls):
 def k3_vs_bcjr_masked(torch, ST, passes):
     """The kernel route's MAP passes (``_map_pass`` calls recorded in one
     decode) against ``_bcjr_masked`` on the same inputs, all passes as
-    rows of one host call.  K3, as the Pallas kernel, does not renormalise
-    per step, so its metrics grow along the window by up to Gamma = the sum
-    over valid steps of (|sy| + |pa|) / nv + |li|, and float32 rounds e by
-    about eps Gamma (``test_torch_stream.py`` holds this law from T = 288
-    to 4608): a pass fails past 4 eps Gamma, or on another decision where
-    the reference is past that bound; carries are compared up to their
-    constant offset."""
+    rows of one host call.  The route runs K3 renormalising every
+    ``STREAM_RENORM_EVERY`` steps, so e follows the per-step normalised
+    reference within 1e-5 (1 + |want|) at any window length
+    (``test_torch_stream.py`` holds it from T = 288 to 6144); a value
+    fails past that, or past 4 eps Gamma (Gamma = the sum over valid
+    steps of (|sy| + |pa|) / nv + |li|, the bound an unrenormalised K3
+    held), or on another decision where the reference is past either
+    bound; carries are compared up to their constant offset within the
+    same tolerances."""
     a0, kw0, _ = passes[0]
     nv, inv_nv, trellis, max_log = a0[4], a0[5], a0[6], a0[7]
 
@@ -2509,22 +2553,30 @@ def k3_vs_bcjr_masked(torch, ST, passes):
     gamma = torch.where(valid, (sy.abs() + pa.abs()) * inv_nv + li.abs(),
                         torch.zeros(())).sum(1)
     bound = 4 * float(np.finfo(np.float32).eps) * gamma  # [R]
+    tol = 1e-5 * (1 + want[0].abs())  # [R, Wn]
     dev_e = (got[0] - want[0]).abs()
-    carries = [((g - g.amax(1, keepdim=True)) - (w - w.amax(1, keepdim=True))
-                ).abs().amax(1) for g, w in zip(got[1:], want[1:])]
+    rel_c, abs_c = [], []
+    for g, w in zip(got[1:], want[1:]):
+        wc = w - w.amax(1, keepdim=True)
+        d = ((g - g.amax(1, keepdim=True)) - wc).abs()
+        abs_c.append(d.amax(1))
+        rel_c.append((d / (1 + wc.abs())).amax(1))
     over = (dev_e.amax(1) > bound).sum() + sum(
-        (c > bound).sum() for c in carries)
+        (c > bound).sum() for c in abs_c)
+    flips = (got[0] > 0) != (want[0] > 0)
     return {"passes": R, "window": Wn, "values": dev_e.numel(),
             "max_abs_dev": float(dev_e.max()),
             "max_rel_dev": float((dev_e / (1 + want[0].abs())).max()),
+            "values_over_1e-5": int((dev_e > tol).sum()),
+            "carry_max_rel_dev": [float(c.max()) for c in rel_c],
             "max_dev_over_eps_gamma": float(
                 (dev_e.amax(1) / (bound / 4)).max()),
             "bound_4_eps_gamma": [float(bound.min()), float(bound.max())],
-            "carry_max_dev": [float(c.max()) for c in carries],
-            "sign_differs": int(((got[0] > 0) != (want[0] > 0)).sum()),
-            "sign_differs_past_bound": int((((got[0] > 0) != (want[0] > 0))
-                                            & (want[0].abs() > bound[:, None])
-                                            ).sum()),
+            "carry_max_dev": [float(c.max()) for c in abs_c],
+            "sign_differs": int(flips.sum()),
+            "sign_differs_past_bound": int((flips & (
+                (want[0].abs() > bound[:, None]) | (want[0].abs() > tol))
+            ).sum()),
             "passes_over_bound": int(over), "host_s": host_s}
 
 
@@ -2540,8 +2592,8 @@ def stream_path(torch, report, k7):
     iterations, Eb/N0 2.0 dB, 8 frames) in both ``boundary_init`` modes:
     BER under 1e-4, K3 counted; on every MAP pass of one decode in each
     mode, K3 against its plain version (``K3Tally``) and against
-    ``_bcjr_masked``, the JAX package's masked core, within float32 drift
-    (:func:`k3_vs_bcjr_masked`).
+    ``_bcjr_masked``, the JAX package's masked core, within
+    1e-5 (1 + |x|) (:func:`k3_vs_bcjr_masked`).
     Returns {kernel: {"Q": launches}}."""
     from commpy_tpu_torch.kernels import bcjr as BK
     from commpy_tpu_torch.kernels import viterbi_acs as K
@@ -2658,8 +2710,14 @@ def stream_path(torch, report, k7):
         calls, passes = rec["bcjr_appdiff"], rec["_map_pass"]
         torch.cuda.synchronize()
         before = k3_tally.mismatches
+        bits_before = k3_tally.bit_diffs
         # the plain version on all the passes at once, a lane a pass (its
-        # arithmetic is lane by lane, so a lane computes as alone)
+        # arithmetic is lane by lane, so a lane computes as alone), at the
+        # stream's renormalisation period
+        if {c[1].get("renorm_every") for c in calls} != {
+                ST.STREAM_RENORM_EVERY}:
+            fail(f"Path Q: the stream's K3 calls do not renormalise every "
+                 f"{ST.STREAM_RENORM_EVERY} steps")
         got, want = stack_k3_calls(torch, BK, calls)
         k3_tally.add(got, want, True)
         vs_masked = k3_vs_bcjr_masked(torch, ST, passes)
@@ -2667,24 +2725,32 @@ def stream_path(torch, report, k7):
                        "ber": errs / (len(frames) * T),
                        "k3_launches": n_k3, "k3_calls_checked": len(calls),
                        "k3_mismatches": k3_tally.mismatches - before,
+                       "k3_bit_diffs": k3_tally.bit_diffs - bits_before,
+                       "renorm_every": ST.STREAM_RENORM_EVERY,
                        "step_s": step, "info_bits_per_s": T / step,
                        "profile": prof, "vs_bcjr_masked": vs_masked}
         print(f"Path Q turbo stream L=6144 {mode}, 8 iterations, Eb/N0 "
               f"2 dB: {errs} errors in {len(frames)} frames; K3 {n_k3} "
               f"launches; K3 against its plain version on {len(calls)} MAP "
-              f"passes: {k3_tally.mismatches - before} mismatches; every "
-              f"pass against _bcjr_masked {vs_masked}; {step * 1e3:.3f} ms "
-              f"a frame", flush=True)
+              f"passes (renorm_every {ST.STREAM_RENORM_EVERY}): "
+              f"{k3_tally.mismatches - before} mismatches, "
+              f"{k3_tally.bit_diffs - bits_before} values differing in any "
+              f"bit; every pass against _bcjr_masked {vs_masked}; "
+              f"{step * 1e3:.3f} ms a frame (41.9-47.5 ms unrenormalised, "
+              f"PERF.md's earlier reading on an H100 at 700 W)", flush=True)
         if errs / (len(frames) * T) >= 1e-4:
             fail(f"Path Q: turbo stream {mode} BER {errs / (len(frames) * T)}")
         if n_k3 != 16 * len(frames) or len(calls) != 16:
             fail(f"Path Q: turbo stream {mode} launched K3 {n_k3} times")
-        if k3_tally.mismatches != before:
+        if (k3_tally.mismatches != before
+                or k3_tally.bit_diffs != bits_before):
             fail(f"Path Q: K3 disagrees with its plain version ({mode})")
         if (vs_masked["passes"] != 16 or vs_masked["passes_over_bound"]
+                or vs_masked["values_over_1e-5"]
+                or max(vs_masked["carry_max_rel_dev"], default=0) > 1e-5
                 or vs_masked["sign_differs_past_bound"]):
-            fail(f"Path Q: K3's route drifts from _bcjr_masked past "
-                 f"4 eps Gamma ({mode}): {vs_masked}")
+            fail(f"Path Q: K3's route departs from _bcjr_masked past "
+                 f"1e-5 (1 + |x|) or 4 eps Gamma ({mode}): {vs_masked}")
     report["path_q"] = {
         "viterbi": {"L": L, "ber": ber, "uncoded_ber": uncoded,
                     "step_s": v_step, "info_bits_per_s": L / v_step,
@@ -2703,6 +2769,201 @@ def stream_path(torch, report, k7):
             "max_rel_err": k3_tally.max_rel_err},
         "launches": launches}
     return launches
+
+
+EXAMPLES = ("conv_encode_decode", "design_qc_ldpc", "dvbt_outer_chain",
+            "ldpc_turbo_links", "nr_ldpc_rate_matching",
+            "plot_constellations", "polar_ber", "receiver_frontend",
+            "sharded_decoding", "wifi80211_bers")
+
+
+def load_example(name):
+    """``examples/torch/<name>.py`` of this checkout, as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "torch", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_example(name, out, host):
+    """The checks of ``tests/test_torch_examples.py`` on a script's
+    numbers at its default size: physics for the Monte-Carlo scripts
+    (BER falls with SNR; soft no worse than hard and SCL-8 + CRC no worse
+    than SC at the top point), and for the scripts whose draws are NumPy's
+    the numbers of the same script run on the host (``host``), which that
+    test holds to the JAX package's: exact for the decode counts and the
+    BERs, each CFO estimate within 1e-4, the payload BER within 1e-3 and
+    the CRC passes within 2 of 256 frames (the FFTs round apart).
+    Returns a list of what failed."""
+    bad = []
+
+    def falls(label, bers):
+        if not bers[0] > bers[-1]:
+            bad.append(f"{label} BER does not fall with SNR: {bers}")
+
+    if name in ("conv_encode_decode", "wifi80211_bers", "polar_ber"):
+        for label, bers in out["bers"].items():
+            falls(label, bers)
+    if name == "conv_encode_decode":
+        for code in ("K=3 (5,7)", "K=3 RSC", "K=7 (133,171)o"):
+            if out["bers"][f"{code} soft"][-1] > \
+                    out["bers"][f"{code} hard"][-1]:
+                bad.append(f"{code}: soft worse than hard at the top SNR")
+    if name == "polar_ber" and \
+            out["bers"]["SCL-8+CRC11"][-1] > out["bers"]["SC"][-1]:
+        bad.append("SCL-8 + CRC worse than SC at the top SNR")
+    if name == "ldpc_turbo_links":
+        for label, res in out.items():
+            falls(label, res["bers"])
+    if name == "plot_constellations" and not (
+            os.path.getsize(out["path"]) > 10000 and out["points"] == {
+                "8-PSK": 8, "16-QAM": 16, "64-QAM": 64}):
+        bad.append(f"the constellation figure: {out}")
+    if name in ("dvbt_outer_chain", "nr_ldpc_rate_matching",
+                "design_qc_ldpc") and out != host:
+        bad.append(f"the card's numbers {out} differ from the host's {host}")
+    if name == "dvbt_outer_chain" and not (
+            out["all_decoded"] and out["payload_exact"]
+            and out["lost_without_interleaving"] > 0):
+        bad.append(f"the outer chain: {out}")
+    if name == "receiver_frontend" and not (
+            np.abs(np.subtract(out["cfo"], host["cfo"])).max() <= 1e-4
+            and abs(out["ber"] - host["ber"]) <= 1e-3
+            and abs(out["crc_pass"] - host["crc_pass"]) <= 2):
+        bad.append(f"the receiver's card and host numbers differ: BER "
+                   f"{out['ber']} / {host['ber']}, CRC "
+                   f"{out['crc_pass']} / {host['crc_pass']}")
+    if name == "sharded_decoding" and not (
+            out["ldpc_equal"] and max(out["turbo_ber"].values()) < 1e-2
+            and out["turbo_sharded_eq_serial"] > 0.99
+            and out["pipeline_eq_payload"] == 1.0
+            and out["viterbi_ber"] < 1e-2 and out["fir_max_err"] < 1e-4):
+        bad.append(f"the sharded demos: "
+                   f"{ {k: v for k, v in out.items() if k != 'ldpc_decisions'} }")
+    return bad
+
+
+def examples_path(torch, report):
+    """The examples phase: each ``examples/torch`` script's
+    ``main(device="cuda")`` in this process at its default (full) size,
+    the kernel counts set to 0 just before and read just after, its wall
+    time, and :func:`check_example`'s checks (the NumPy-draw scripts are
+    run on the host too, uncounted, to compare).  ``plot_constellations``
+    draws on the host with matplotlib and launches nothing on the card;
+    where matplotlib is not installed it is reported as not run.  One K1/K2 call
+    (``wifi80211_bers``), one K3 call of the turbo decoder
+    (``ldpc_turbo_links``) and one of the renormalising turbo stream
+    (``sharded_decoding``), recorded as the scripts make them, are held
+    to their plain versions on the card, bit for bit.  The process group
+    the scripts' one-rank meshes start is destroyed at the end.
+    Returns {kernel: {"examples": launches}}."""
+    import importlib.util
+    import tempfile
+
+    from commpy_tpu_torch.kernels import bcjr as BK
+    from commpy_tpu_torch.kernels import qc_bp as QK
+    from commpy_tpu_torch.kernels import viterbi_acs as K
+    from commpy_tpu_torch.ops import stream as ST
+    from commpy_tpu_torch.ops import turbo as OT
+    from commpy_tpu_torch.ops import viterbi as OV
+
+    counters = {"acs_forward": K.acs_forward, "traceback": K.traceback,
+                "qc_bp_resident": QK.qc_bp_resident,
+                "qc_bp_streamed": QK.qc_bp_streamed,
+                "bcjr_appdiff": BK.bcjr_appdiff}
+    record = {"wifi80211_bers": (OV, ("acs_forward", "traceback")),
+              "ldpc_turbo_links": (OT, ("bcjr_appdiff",)),
+              "sharded_decoding": (ST, ("bcjr_appdiff",))}
+    host_too = ("dvbt_outer_chain", "nr_ldpc_rate_matching",
+                "design_qc_ldpc", "receiver_frontend")
+    total = {k: 0 for k in counters}
+    rows, calls = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    try:
+        for name in EXAMPLES:
+            if (name == "plot_constellations"
+                    and importlib.util.find_spec("matplotlib") is None):
+                rows[name] = {"not_run": "matplotlib is not installed"}
+                print(f"examples/torch/{name}.py: not run, matplotlib is "
+                      f"not installed on this machine", flush=True)
+                continue
+            mod = load_example(name)
+            kw = {"out": tmp} if name == "plot_constellations" else {}
+            box = {}
+
+            def run(mod=mod, kw=kw, box=box):
+                box["out"] = mod.main("cuda", **kw)
+                torch.cuda.synchronize()
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            if name in record:
+                calls[name] = record_calls(*record[name], run, keep=1)
+            else:
+                run()
+            wall = time.perf_counter() - t0
+            counts = {k: c.launches for k, c in counters.items()}
+            out = box["out"]
+            host = mod.main("cpu") if name in host_too else None
+            bad = check_example(name, out, host)
+            shown = {k: v for k, v in out.items() if k != "ldpc_decisions"}
+            rows[name] = {"s": wall, "launches": counts, "out": shown,
+                          "failed": bad}
+            for k, v in counts.items():
+                total[k] += v
+            print(f"examples/torch/{name}.py: {wall:.2f} s; launches "
+                  f"{counts}; {json.dumps(shown, default=str)[:1500]}",
+                  flush=True)
+            if bad:
+                fail(f"examples/torch/{name}.py: {bad}")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    # the recorded calls against their plain versions
+    held = {}
+    (acs_a, _, (dec, best)), = calls["wifi80211_bers"]["acs_forward"]
+    (tb_a, _, bits), = calls["wifi80211_bers"]["traceback"]
+    t12 = {"acs_forward": Tally(), "traceback": Tally()}
+    t12["acs_forward"].add(dec, K.acs_forward_plain(*acs_a)[0])
+    t12["acs_forward"].add(best, K.acs_forward_plain(*acs_a)[1])
+    t12["traceback"].add(bits, K.traceback_plain(*tb_a))
+    held["wifi80211_bers"] = {k: {"compared": t.compared,
+                                  "mismatches": t.mismatches}
+                              for k, t in t12.items()}
+    for name in ("ldpc_turbo_links", "sharded_decoding"):
+        (a, kw, got), = calls[name]["bcjr_appdiff"]
+        got = got if isinstance(got, tuple) else (got,)
+        want = BK.bcjr_appdiff_plain(*a, **kw)
+        want = want if isinstance(want, tuple) else (want,)
+        tk = K3Tally()
+        tk.add(got, want, True)
+        held[name] = {"bcjr_appdiff": {
+            "compared": tk.compared, "mismatches": tk.mismatches,
+            "bit_diffs": tk.bit_diffs, "shape": list(a[0].shape),
+            "renorm_every": kw.get("renorm_every", 0)}}
+    print(f"examples: K1/K2 and K3 calls against their plain versions "
+          f"{held}; launches over all scripts {total}; "
+          f"{sum(r.get('s', 0) for r in rows.values()):.1f} s", flush=True)
+    if any(t.mismatches for t in t12.values()) or any(
+            v["bcjr_appdiff"]["mismatches"] or v["bcjr_appdiff"]["bit_diffs"]
+            for k, v in held.items() if k != "wifi80211_bers"):
+        fail(f"examples: a kernel call differs from its plain version: "
+             f"{held}")
+    if held["sharded_decoding"]["bcjr_appdiff"]["renorm_every"] != \
+            ST.STREAM_RENORM_EVERY:
+        fail("examples: the turbo stream's K3 call does not renormalise")
+    if not all(total.values()):
+        fail(f"examples: a kernel was not launched: {total}")
+    report["examples"] = {"scripts": rows, "held_to_plain": held,
+                          "launches": total}
+    return {k: {"examples": v} for k, v in total.items()}
 
 
 def tp_path(torch, report, codes, ldpc_link):
@@ -3179,6 +3440,19 @@ def main():
           f"{k3_tally.bit_diffs} differ in any bit (largest "
           f"|diff|/(1+|plain|) {k3_tally.max_rel_err:.3e}); "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    k3_renorm = K3Tally()
+    k3_renorm_parity(torch, k3_renorm, trellises)
+    print(f"bcjr_appdiff renorm_every 1, 2 and 4: {k3_renorm.mismatches} "
+          f"mismatches, {k3_renorm.bit_diffs} values differing in any bit, "
+          f"in {k3_renorm.cases} cases, {k3_renorm.compared} values; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if k3_renorm.mismatches or k3_renorm.bit_diffs or not k3_renorm.cases:
+        fail("bcjr_appdiff with renorm_every differs from its plain version")
+    report["k3_renorm_parity"] = {
+        "cases": k3_renorm.cases, "compared": k3_renorm.compared,
+        "mismatches": k3_renorm.mismatches,
+        "bit_diffs": k3_renorm.bit_diffs}
 
     lap("k3_parity")
     # ---- Path C: the rate-1/3 turbo link -------------------------------
@@ -3304,6 +3578,9 @@ def main():
     tp_path(torch, report, codes, ldpc_link)
     torch.distributed.destroy_process_group()
     lap("path_r")
+    # ---- the examples: every examples/torch script at its own size -------
+    add_launches(examples_path(torch, report))
+    lap("examples")
     # ---- timing -------------------------------------------------------
     timings = {}
     tb_inputs = {}
@@ -3586,6 +3863,35 @@ def main():
                 continue
             t[f"{hist}_device_ms"] = device_ms(torch, lambda: k3_call(
                 torch, syn, pan, li, trt, hist, **kw), 5, "bcjr_kernel")
+        if key == "nii":  # the renormalised variants at the same shape
+            periods = [1, 2, 4]
+            t["renorm"] = {}
+            for N in periods:
+                rkw = dict(kw, renorm_every=N)
+                r = t["renorm"][N] = {
+                    "device_ms": device_ms(torch, lambda: BK.bcjr_appdiff(
+                        syn, pan, li, trt, **rkw), 5, "bcjr_kernel"),
+                    "plain_ms": cuda_ms(torch, lambda: BK.bcjr_appdiff_plain(
+                        syn, pan, li, trt, **rkw), 1, warmup=0),
+                    "bound": k3_bound(T, R, 4, "exact", variant,
+                                      renorm_every=N)}
+                r["bound_ms"], r["bound_by"] = k3_bound_ms(*r["bound"][:3])
+            # CUDA-event times in turns: default, each period, each period
+            # again in reverse, default
+            turns = [0] + periods + periods[::-1] + [0]
+            times = [cuda_ms(torch, lambda N=N: BK.bcjr_appdiff(
+                syn, pan, li, trt, **dict(kw, renorm_every=N)), 10)
+                for N in turns]
+            t["turns"] = list(zip(turns, times))
+            for N in periods:
+                r = t["renorm"][N]
+                r["ms"] = float(np.mean([m for n, m in t["turns"]
+                                         if n == N]))
+                print(f"k3_nii renorm_every={N}: {r['ms']:.4f} ms a call, "
+                      f"{ms_str(r['device_ms'])} ms of device time (plain "
+                      f"{r['plain_ms']:.1f} ms), bound {r['bound_ms']:.4f} "
+                      f"ms by {r['bound_by']}; in turns {t['turns']}",
+                      flush=True)
         b_ms, b_by = k3_bound_ms(*t["bound"][:3])
         print(f"k3_{key} T={T} R={R}: {t['ms']:.4f} ms a call, "
               f"{ms_str(t['device_ms'])} ms of device time (plain "
@@ -3749,6 +4055,11 @@ def main():
         key: {k: timings[f"k3_{key}"][k]
               for k in ("plan_hist", "shared_device_ms", "global_device_ms")}
         for key in K3_BENCH}
+    extra.update({
+        "renorm": {str(N): {k: v for k, v in r.items() if k != "bound"}
+                   for N, r in t["renorm"].items()},
+        "renorm_turns_ms": t["turns"],
+        "renorm_parity": report["k3_renorm_parity"]})
     kernels.append(dict({
         "name": "bcjr_appdiff", "route": "cuda", "source": BCJR_SOURCE,
         "replaces": "commpy_tpu/kernels/bcjr.py:296",

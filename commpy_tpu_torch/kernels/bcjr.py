@@ -21,7 +21,20 @@ The arithmetic is the Pallas kernel's:
   g1[s])``; backward: ``beta`` starts at 0, ``cand_u[s] = (beta +
   g_u)[nst[s][u]]``, ``e[t] = reduce_s(al + cand1) - reduce_s(al +
   cand0)`` with ``reduce_s`` halving contiguously (states s and s + S/2
-  pair first); no per-step normalisation;
+  pair first); no per-step normalisation (``renorm_every=0``, the
+  default);
+* ``renorm_every=N > 0``: the forward recursion subtracts each lane's
+  maximum over its S state metrics after step t whenever ``(t + 1) % N
+  == 0``, the backward recursion after step t whenever ``(T - t) % N ==
+  0``, in the masked variant whether or not step t is valid.  The
+  schedule is fixed by the absolute step, so the kernel and the plain
+  version stay bit for bit, and the stored pre-step metric after a
+  renormalising step is the renormalised one.  Without it the metrics
+  grow along the window by up to the sum of the branch magnitudes
+  Gamma, and ``e`` carries float32 rounding of about eps * Gamma: the
+  sequence-parallel turbo stream, whose reference normalises every step,
+  renormalises every step to stay within float32 of it at any window
+  length (``ops.stream.STREAM_RENORM_EVERY``);
 * ``lse2``: exact ``max + log1p(exp(-|x-y|))``, max-log ``max``, or
   linear ``max + max(0.6931472 - 0.25|x-y|, 0)``;
 * masked variant (``valid``/``first``): invalid steps leave both
@@ -76,7 +89,7 @@ def _lib() -> ctypes.CDLL:
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     ip = ctypes.POINTER(ctypes.c_int)
     lib.bcjr_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i,
-                                i, i, i, i, ip, ip, u, u, u, u, p]
+                                i, i, i, i, i, ip, ip, u, u, u, u, p]
     lib.bcjr_launch.restype = i
     return lib
 
@@ -179,13 +192,19 @@ def _lse2(mode: str):
 
 
 def _prepare(syn, pan, li, trellis, max_log, valid, first, io_dtype,
-             boundary, lse, combined):
+             boundary, lse, combined, renorm_every=0):
     """Checks and the kernel-side inputs shared by the kernel and its
     plain version: (mode, tables, w1, w2, li, valid, first, a0, bT), the
     streams in the io type, ``valid`` [T, R] and ``first`` [R] as bool
-    (or None), the boundary metrics float32 [S, R] (or None)."""
+    (or None), the boundary metrics float32 [S, R] (or None).
+    ``renorm_every`` (the renormalisation period, 0 for none) is checked
+    only."""
     if io_dtype not in ("f32", "bf16"):
         raise ValueError('io_dtype must be "f32" or "bf16"')
+    if (isinstance(renorm_every, bool)
+            or int(renorm_every) != renorm_every or renorm_every < 0):
+        raise ValueError(f"renorm_every must be an int >= 0, got "
+                         f"{renorm_every!r}")
     if lse not in (None, "exact", "linear"):
         raise ValueError('lse must be None, "exact" or "linear"')
     S = trellis.number_states
@@ -254,13 +273,14 @@ def _finish(e, li, af, bf, posterior, boundary):
 def bcjr_appdiff_plain(syn, pan, li, trellis, max_log: bool = False,
                        valid=None, first=None, io_dtype: str = "f32",
                        boundary=None, lse: str = None, combined: bool = False,
-                       posterior: bool = False):
+                       posterior: bool = False, renorm_every: int = 0):
     """Plain PyTorch version of the BCJR kernel (same inputs and outputs as
     :func:`bcjr_appdiff`), in the Pallas body's order of float operations.
     """
     mode, (inv, nst, which, sign), w1, w2, li_io, valid, first, a0, bT = \
         _prepare(syn, pan, li, trellis, max_log, valid, first, io_dtype,
-                 boundary, lse, combined)
+                 boundary, lse, combined, renorm_every)
+    N = int(renorm_every)
     lse2 = _lse2(mode)
     T, R = syn.shape
     S = trellis.number_states
@@ -291,6 +311,8 @@ def bcjr_appdiff_plain(syn, pan, li, trellis, max_log: bool = False,
         hist.append(alpha)  # the pre-update metrics, which the APP at t uses
         a = lse2(alpha[inv0] + g0[t], alpha[inv1] + g1[t])
         alpha = a if valid is None else torch.where(valid[t], a, alpha)
+        if N and (t + 1) % N == 0:
+            alpha = alpha - alpha.amax(0)
 
     def reduce_s(x):
         while x.shape[0] > 1:
@@ -308,6 +330,8 @@ def bcjr_appdiff_plain(syn, pan, li, trellis, max_log: bool = False,
         al = hist[t]
         e[t] = (reduce_s(al + cand1) - reduce_s(al + cand0)).to(e.dtype)
         beta = b if valid is None else torch.where(valid[t], b, beta)
+        if N and (T - t) % N == 0:
+            beta = beta - beta.amax(0)
     return _finish(e, li, alpha, beta, posterior, boundary)
 
 
@@ -330,7 +354,7 @@ def _launch_tables(trellis):
 def bcjr_appdiff(syn, pan, li, trellis, max_log: bool = False, valid=None,
                  first=None, io_dtype: str = "f32", boundary=None,
                  lse: str = None, combined: bool = False,
-                 posterior: bool = False):
+                 posterior: bool = False, renorm_every: int = 0):
     """Fused BCJR pass; returns the prior-free APP log-ratio.
 
     syn/pan : ``[T, R]`` symbol streams pre-scaled by 1/noise_variance
@@ -348,6 +372,9 @@ def bcjr_appdiff(syn, pan, li, trellis, max_log: bool = False, valid=None,
         ``"linear"`` (linear-log-MAP)
     io_dtype : ``"f32"`` or ``"bf16"`` (streams and ``e`` rounded)
     posterior : return ``li + e`` (the full posterior ratio) instead of e
+    renorm_every : 0 (the Pallas kernel's arithmetic: no normalisation),
+        or N > 0: each recursion subtracts each lane's state-metric
+        maximum every N steps, on the schedule of the module docstring
 
     Returns ``e [T, R]`` float32.  CUDA tensors launch the kernel; CPU
     tensors run :func:`bcjr_appdiff_plain`.
@@ -355,13 +382,13 @@ def bcjr_appdiff(syn, pan, li, trellis, max_log: bool = False, valid=None,
     if syn.device.type == "cpu":
         return bcjr_appdiff_plain(syn, pan, li, trellis, max_log, valid,
                                   first, io_dtype, boundary, lse, combined,
-                                  posterior)
+                                  posterior, renorm_every)
     if syn.device.type != "cuda":
         raise ValueError(f"bcjr_appdiff runs on cuda or cpu, not "
                          f"{syn.device}")
     mode, _, w1, w2, li_io, valid, first, a0, bT = \
         _prepare(syn, pan, li, trellis, max_log, valid, first, io_dtype,
-                 boundary, lse, combined)
+                 boundary, lse, combined, renorm_every)
     T, R = syn.shape
     S = trellis.number_states
     if S > MAX_STATES:
@@ -369,11 +396,12 @@ def bcjr_appdiff(syn, pan, li, trellis, max_log: bool = False, valid=None,
             f"the CUDA BCJR kernel takes S <= {MAX_STATES} states (got {S})")
     return _bcjr_launch(trellis, mode, w1, w2, li_io, valid, first, a0, bT,
                         li, boundary, posterior,
-                        bcjr_plan(T, S, R, sm_count(syn.device.index)))
+                        bcjr_plan(T, S, R, sm_count(syn.device.index)),
+                        renorm_every)
 
 
 def _bcjr_launch(trellis, mode, w1, w2, li_io, valid, first, a0, bT, li,
-                 boundary, posterior, plan):
+                 boundary, posterior, plan, renorm_every=0):
     """Launch K3 on checked CUDA inputs (``_prepare``'s) by ``plan``."""
     T, R = w1.shape
     S = trellis.number_states
@@ -399,7 +427,8 @@ def _bcjr_launch(trellis, mode, w1, w2, li_io, valid, first, a0, bT, li,
                 w1.data_ptr(), w2.data_ptr(), li_io.data_ptr(), ptr(valid),
                 ptr(first), ptr(a0), ptr(bT), e.data_ptr(), ptr(af), ptr(bf),
                 ptr(hist), T, R, S, _MODES[mode], variant,
-                int(w1.dtype == torch.bfloat16), int(shared),
+                int(renorm_every), int(w1.dtype == torch.bfloat16),
+                int(shared),
                 plan["smem_bytes"], *_launch_tables(trellis),
                 torch.cuda.current_stream(dev).cuda_stream)
         if rc:

@@ -31,7 +31,13 @@
 // [s]], beta' = lse2(cand_0, cand_1), e[t] = reduce(al + cand_1) -
 // reduce(al + cand_0), al the alpha before step t and beta the beta after
 // the backward steps past t, the state reduction halving contiguously (s
-// pairs with s + S/2 first).  No per-step normalisation.
+// pairs with s + S/2 first).  No per-step normalisation, unless the
+// renormalisation period N (renorm) is set: then the forward recursion
+// subtracts each lane's maximum state metric after step t whenever
+// (t + 1) % N == 0, and the backward one after step t whenever
+// (T - t) % N == 0, valid step or not.  The schedule is fixed by the
+// absolute step, so the meet-in-the-middle split does not move it, and a
+// stored pre-step metric after such a step is the renormalised one.
 //
 // What bounds it on an H100: at the NII bench shape (T=128, R=12288, S=4,
 // f32) the function reads 19.3 MB of streams and carries and writes 6.7 MB
@@ -102,7 +108,7 @@ struct Args {
   float* af;
   float* bf;
   float* hist;
-  int T, R, io_bf16;
+  int T, R, io_bf16, renorm;
 };
 
 template <int MODE>
@@ -190,6 +196,19 @@ __device__ __forceinline__ float appdiff(float p0, float p1, int s) {
   return __shfl_xor_sync(kFull, v, h) - v;
 }
 
+// Each lane's maximum over its S state metrics, in every thread of the
+// group: log2(S) butterfly steps whose xor offsets, below S, stay inside
+// the S-aligned group (two lanes share a warp at S = 16).  fmaxf is exact,
+// so the order does not matter.
+template <int S>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = S / 2; o >= 1; o /= 2) {
+    v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  }
+  return v;
+}
+
 // A block holds kLanes lanes: for each, S forward threads (one a state)
 // and S backward threads.  Thread (lane, s) of a direction is number
 // lane * S + s of it, so a warp holds 32 / S whole lanes.
@@ -249,6 +268,19 @@ __global__ void __launch_bounds__(2 * kLanes * S)
                                 __shfl_sync(kFull, a, inv1) + g1);
     if (ok) a = na;
   };
+  // the renormalisation after a step that ends a period of N: `since`
+  // counts the direction's steps since the last one, through both halves
+  // (the forward direction's steps are t + 1 = 1 .. T, the backward's
+  // T - t = 1 .. T), the same in every thread of a warp, dead lanes and
+  // invalid steps included, so the shuffles converge
+  const int N = g.renorm;
+  int since = 0;
+  auto renorm = [&](float& v) {
+    if (N > 0 && ++since == N) {
+      since = 0;
+      v = v - group_max<S>(v);
+    }
+  };
 
   // m: alpha[s] in the forward threads, beta[s] in the backward ones
   float m;
@@ -268,6 +300,7 @@ __global__ void __launch_bounds__(2 * kLanes * S)
     pipelined<kAhead<S>>(h, fetch_at, [&](int t, const Item& x) {
       if (live) hp[t * h_t] = m;
       alpha_step(m, branch0(x), branch1(x), x.ok);
+      renorm(m);
     });
   } else {
     pipelined<kAhead<S>>(T - h, [&](int i) { return fetch_at(T - 1 - i); },
@@ -278,6 +311,7 @@ __global__ void __launch_bounds__(2 * kLanes * S)
                 const float c1 = __shfl_sync(kFull, m + branch1(x), nst1);
                 const float nb = lse2<MODE>(c0, c1);
                 if (x.ok) m = nb;
+                renorm(m);
               });
   }
   __syncthreads();  // every stored metric of the first half is in place
@@ -293,6 +327,7 @@ __global__ void __launch_bounds__(2 * kLanes * S)
                 const float e = appdiff<S, MODE>(m + c0, m + c1, s);
                 if (live && s == 0) store(g.e, (size_t)t * R + r, e, bf16);
                 alpha_step(m, g0, g1, x.ok);
+                renorm(m);
               });
     if (VARIANT == kBoundary && live) g.af[(size_t)s * R + r] = m;
   } else {
@@ -305,6 +340,7 @@ __global__ void __launch_bounds__(2 * kLanes * S)
                 if (live && s == 0) store(g.e, (size_t)t * R + r, e, bf16);
                 const float nb = lse2<MODE>(c0, c1);
                 if (x.ok) m = nb;
+                renorm(m);
               });
     if (VARIANT == kBoundary && live) g.bf[(size_t)s * R + r] = m;
   }
@@ -372,18 +408,21 @@ cudaError_t launch_states(int mode, int variant, int shared_hist,
 }  // namespace
 
 // inv and nst are [2][S] host arrays (input-major); which and neg hold one
-// bit per destination state for each input.  shared_hist and smem_bytes
-// come from the launch plan (kernels/bcjr.py:bcjr_plan); hist is null when
-// the history lives in shared memory.
+// bit per destination state for each input; renorm is the renormalisation
+// period (0: none).  shared_hist and smem_bytes come from the launch plan
+// (kernels/bcjr.py:bcjr_plan); hist is null when the history lives in
+// shared memory.
 extern "C" int bcjr_launch(const void* w1, const void* w2, const void* li,
                            const uint8_t* valid, const uint8_t* first,
                            const float* a0, const float* bT, void* e,
                            float* af, float* bf, float* hist, int T, int R,
-                           int S, int mode, int variant, int io_bf16,
-                           int shared_hist, int smem_bytes, const int* inv,
+                           int S, int mode, int variant, int renorm,
+                           int io_bf16, int shared_hist, int smem_bytes,
+                           const int* inv,
                            const int* nst, unsigned which0, unsigned which1,
                            unsigned neg0, unsigned neg1, void* stream) {
   if (S < 2 || S > kMaxStates || (S & (S - 1)) || T < 1 || R < 1 ||
+      renorm < 0 ||
       (!shared_hist && hist == nullptr) ||
       smem_bytes < (shared_hist ? (int)sizeof(float) * T * S * kLanes : 0)) {
     return (int)cudaErrorInvalidValue;
@@ -400,7 +439,7 @@ extern "C" int bcjr_launch(const void* w1, const void* w2, const void* li,
   tb.neg[0] = neg0;
   tb.neg[1] = neg1;
   const Args a{w1, w2, li, valid, first, a0, bT, e, af, bf, hist, T, R,
-               io_bf16};
+               io_bf16, renorm};
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   switch (S) {

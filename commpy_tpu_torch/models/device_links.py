@@ -358,6 +358,7 @@ def make_qcldpc_awgn_link(
     msa_scale: float = 1.0,
     msa_offset: float = 0.0,
     use_psk: bool = False,
+    schedule: str = "flooding",
     name: str = "qcldpc-awgn",
     device="cuda",
 ) -> DeviceLink:
@@ -366,7 +367,9 @@ def make_qcldpc_awgn_link(
     One frame is one QC codeword, decoded by
     :func:`~commpy_tpu_torch.ops.qcldpc.qc_bp_decode_device` (flooding,
     ``backend='auto'``: the resident kernel K4 on the card for every
-    802.11n code).
+    802.11n code).  ``schedule='layered'`` decodes by the layered
+    schedule instead, which takes codes past K4's plan (a DVB-S2-class
+    Z=360) onto the streamed kernel K5.
     """
     dev = resolve_device(device)
     n_v = qc_params["n_vnodes"]
@@ -390,7 +393,8 @@ def make_qcldpc_awgn_link(
     def decode(llr):
         with record_function("link.ldpc_decode"):
             dec, _ = qc_bp_decode_device(llr, qc_params, algorithm,
-                                         n_iterations, msa_scale=msa_scale,
+                                         n_iterations, schedule=schedule,
+                                         msa_scale=msa_scale,
                                          msa_offset=msa_offset, device=dev)
             return dec[..., :frame_bits]
 

@@ -46,6 +46,19 @@ from .viterbi import viterbi_decode_device
 
 __all__ = ["sharded_viterbi_stream", "sharded_turbo_stream"]
 
+# K3's renormalisation period on the stream's MAP passes.  The reference
+# (``_bcjr_masked``) normalises every step; K3 by default never does, so
+# its metrics grow along the window by the sum of the branch magnitudes
+# and e drifts from the reference by about eps times that sum (6.3e-3
+# relative on the card at T ~ 6,000).  With a period of N the metrics
+# stay within N steps' growth of the reference's.
+# A decode's later passes carry large extrinsics, and with them large
+# metrics; there the deviation grows with N, and every step is the one
+# period that keeps it under half of 1e-5 (1 + |e|) on the card, for a
+# few per cent of the stream's time over a period of 2 or 4
+# (scripts/torch_stream_renorm.py reads each period).
+STREAM_RENORM_EVERY = 1
+
 def sharded_viterbi_stream(
     coded_local,
     trellis: Trellis,
@@ -104,8 +117,9 @@ def _map_pass(route, sy, pa, li, nv, inv_nv, trellis, max_log, first,
     gives the start).
 
     ``'torch'`` runs ``_bcjr_masked`` on ``[1, Wn]`` rows; ``'kernel'``
-    runs K3 on ``[Wn, 1]`` streams pre-scaled by 1/noise_variance, its
-    carries renormalised (K3 does not normalise per step).
+    runs K3 on ``[Wn, 1]`` streams pre-scaled by 1/noise_variance,
+    renormalising every :data:`STREAM_RENORM_EVERY` steps, its carries
+    less their maximum (K3 does not normalise per step).
     """
     if route == "torch":
         a0, bT = (None, None) if boundary is None else (
@@ -125,7 +139,8 @@ def _map_pass(route, sy, pa, li, nv, inv_nv, trellis, max_log, first,
           else {"boundary": (boundary[0][:, None], boundary[1][:, None])}
           if boundary is not None else {})
     out = bcjr_appdiff((sy * inv_nv)[:, None], (pa * inv_nv)[:, None],
-                       li[:, None], trellis, max_log=max_log, **kw)
+                       li[:, None], trellis, max_log=max_log,
+                       renorm_every=STREAM_RENORM_EVERY, **kw)
     if boundary is None:
         return out[:, 0]
     e, af, bf = out

@@ -13,8 +13,9 @@ tables the batched decoders use:
   ``next_state_table`` (this order fixes the decoders' tie-breaks);
 * ``branch_codewords[s, j, n]``: ideal output bits of that branch.
 
-The plotting helpers of the JAX package (``visualize``,
-``visualize_fsm``) are not ported.
+``visualize`` and ``visualize_fsm`` draw the JAX package's figures of
+the trellis and of its state machine (host matplotlib, imported when
+called).
 """
 from __future__ import annotations
 
@@ -176,6 +177,102 @@ class Trellis:
                 next_state_table[state, inp] = int(
                     np_pack_bits(shift_register))
         return next_state_table, output_table
+
+    def visualize(self, trellis_length=2, state_order=None, state_radius=0.04,
+                  edge_colors=None, save_path=None, show=True):
+        """Plot the trellis diagram: states as columns of nodes over
+        ``trellis_length`` time steps, one colored edge per input."""
+        import matplotlib.colors as mcolors
+        import matplotlib.pyplot as plt
+
+        S, I = self.number_states, self.number_inputs
+        if edge_colors is None:
+            edge_colors = [mcolors.hsv_to_rgb((i / I, 1, 1)) for i in range(I)]
+        if state_order is None:
+            state_order = list(range(S))
+        pos = {s: i for i, s in enumerate(state_order)}
+
+        fig, ax = plt.subplots(figsize=(2.5 * trellis_length, 0.6 * S + 1))
+        for t in range(trellis_length):
+            for s in range(S):
+                ax.scatter([t], [pos[s]], s=300, c="#003399", zorder=3)
+                ax.annotate(str(s), (t, pos[s]), color="w", ha="center",
+                            va="center", fontsize=8, zorder=4)
+        for t in range(trellis_length - 1):
+            for s in range(S):
+                for u in range(I):
+                    ns = self.next_state_table[s, u]
+                    ax.plot([t, t + 1], [pos[s], pos[ns]],
+                            color=edge_colors[u], lw=1, zorder=2)
+        ax.set_xticks(range(trellis_length))
+        ax.set_xlabel("time step")
+        ax.set_yticks([])
+        ax.invert_yaxis()
+        ax.legend(
+            handles=[
+                plt.Line2D([0], [0], color=edge_colors[u],
+                           label=f"input {u}") for u in range(I)
+            ],
+            loc="upper right",
+        )
+        if save_path is not None:
+            fig.savefig(save_path, bbox_inches="tight")
+        if show:
+            plt.show()
+        return fig
+
+    def visualize_fsm(self, state_order=None, state_radius=0.04,
+                      edge_colors=None, save_path=None, show=True):
+        """Plot the finite-state machine: states on a circle, one arrow
+        per transition labelled with its output (small trellises only)."""
+        import matplotlib.colors as mcolors
+        import matplotlib.pyplot as plt
+
+        S, I = self.number_states, self.number_inputs
+        if edge_colors is None:
+            edge_colors = [mcolors.hsv_to_rgb((i / I, 1, 1)) for i in range(I)]
+        if state_order is None:
+            state_order = list(range(S))
+        angles = 2 * np.pi * np.arange(S) / S
+        radius = max(1.0, state_radius * S * 4)
+        xy = {s: (radius * np.cos(angles[i]), radius * np.sin(angles[i]))
+              for i, s in enumerate(state_order)}
+
+        fig, ax = plt.subplots(figsize=(7, 7))
+        for s, (x, y) in xy.items():
+            ax.scatter([x], [y], s=600, c="#003399", zorder=3)
+            ax.annotate(str(s), (x, y), color="w", ha="center", va="center",
+                        zorder=4)
+        for s in range(S):
+            for u in range(I):
+                ns = self.next_state_table[s, u]
+                out = self.output_table[s, u]
+                x0, y0 = xy[s]
+                x1, y1 = xy[ns]
+                if ns == s:
+                    ax.annotate(f"({out})", (x0 * 1.25, y0 * 1.25),
+                                ha="center", color=edge_colors[u])
+                else:
+                    ax.annotate(
+                        "", (x1, y1), (x0, y0),
+                        arrowprops=dict(arrowstyle="->",
+                                        color=edge_colors[u],
+                                        connectionstyle="arc3,rad=0.15"),
+                    )
+                    ax.annotate(f"({out})",
+                                ((x0 + x1) / 2 * 1.15, (y0 + y1) / 2 * 1.15),
+                                ha="center", fontsize=8,
+                                color=edge_colors[u])
+        lim = radius * 1.6
+        ax.set_xlim(-lim, lim)
+        ax.set_ylim(-lim, lim)
+        ax.set_axis_off()
+        ax.set_title("Finite State Machine (output on transition)")
+        if save_path is not None:
+            fig.savefig(save_path, bbox_inches="tight")
+        if show:
+            plt.show()
+        return fig
 
     def _build_inverse_tables(self):
         S, I = self.number_states, self.number_inputs

@@ -15,9 +15,9 @@ modes and at warmup=0 (L = 1024 D, 3 iterations), with
 ``test_stream.py``'s serial-mismatch and message checks on the port's
 outputs, on the default route (K3's, its plain version here), and the
 ``_bcjr_masked`` route (``backend='torch'``) deciding as it; one MAP
-pass of the two routes within float32 drift that grows with T; the
-sharded FIR within 1e-5 of the JAX package's
-and of the port's ``fir_filter(x, taps, 'full')[:n]``.  At
+pass of the two routes within 1e-5 (1 + |x|) from T = 288 to 6144 (the
+kernel route renormalises its metrics); the sharded FIR within 1e-5 of
+the JAX package's and of the port's ``fir_filter(x, taps, 'full')[:n]``.  At
 ``warmup_codewords=0`` the JAX stream's halo is the whole shard
 (``x_local[-0:]``, ``commpy_tpu/ops/stream.py:82``) and its BER is about
 a half; the port's halo is empty and it decodes as the serial decoder
@@ -273,18 +273,17 @@ def test_turbo_stream_kernel_route_decides_as_bcjr_masked(runs, D, case):
     np.testing.assert_array_equal(pout[case], pout[case + "_torch"])
 
 
-@pytest.mark.parametrize("T", [288, 1152, 4608])
+@pytest.mark.parametrize("T", [288, 1152, 4608, 6144])
 @pytest.mark.parametrize("mode", ["valid", "boundary"])
-def test_kernel_route_app_values_drift_from_bcjr_masked_within_float32(
-        T, mode):
+def test_kernel_route_app_values_match_bcjr_masked(T, mode):
     """One MAP pass of T steps through K3's route (its plain version
-    here) and through _bcjr_masked, on the same inputs.  K3, as the
-    Pallas kernel, does not renormalise its metrics per step: they grow
-    along the window by up to Gamma = sum over the valid steps of
-    (|sy| + |pa|) / nv + |li|, and e, a difference of two such sums,
-    carries float32 rounding of about eps * Gamma.  Its values and the
-    carries (up to their constant offset) stay within 4 eps Gamma from
-    T = 288 to 4608, a bound that grows with T; a halo or carry fault
+    here) and through _bcjr_masked, on the same inputs.  Unrenormalised,
+    K3's metrics would grow along the window by up to Gamma = sum over
+    the valid steps of (|sy| + |pa|) / nv + |li|, and e, a difference of
+    two such sums, would carry float32 rounding of about eps * Gamma;
+    the route renormalises every STREAM_RENORM_EVERY steps, so e and the
+    carries (up to their constant offset) stay within 1e-5 (1 + |want|)
+    at every T, and within 4 eps Gamma as well; a halo or carry fault
     would be off by O(1)."""
     from commpy_tpu_torch.ops.interleave import RandInterlv
     from commpy_tpu_torch.ops.stream import _map_pass
@@ -319,11 +318,17 @@ def test_kernel_route_app_values_drift_from_bcjr_masked_within_float32(
         got, want = (got,), (want,)
     gamma = float((((y[0].abs() + y[1].abs()) * inv + li.abs())[valid]).sum())
     bound = 4 * float(np.finfo(np.float32).eps) * gamma
-    dev_e = float((got[0] - want[0]).abs().max())
-    assert dev_e <= bound, (dev_e, bound)
-    assert ((got[0] > 0) != (want[0] > 0))[want[0].abs() > bound].sum() == 0
+    dev_e = (got[0] - want[0]).abs()
+    tol = 1e-5 * (1 + want[0].abs())
+    assert float(dev_e.max()) <= bound, (float(dev_e.max()), bound)
+    assert bool((dev_e <= tol).all()), float((dev_e / tol).max())
+    flips = (got[0] > 0) != (want[0] > 0)
+    assert flips[want[0].abs() > bound].sum() == 0
+    assert flips[want[0].abs() > tol].sum() == 0
     for g, w in zip(got[1:], want[1:]):
-        assert float(((g - g.max()) - (w - w.max())).abs().max()) <= bound
+        dg = ((g - g.max()) - (w - w.max())).abs()
+        assert float(dg.max()) <= bound
+        assert bool((dg <= 1e-5 * (1 + (w - w.max()).abs())).all())
 
 
 @pytest.mark.parametrize("D", DS)
