@@ -1,0 +1,23 @@
+"""The benchmark's own tests: CPU tests, and tests marked ``card`` that
+need a CUDA card and skip without one (decided inside the test)."""
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skips without one")
+
+
+@pytest.fixture
+def card():
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
