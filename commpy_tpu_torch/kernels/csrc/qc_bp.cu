@@ -405,7 +405,8 @@ template <int KMAX, bool LAYERED, bool SPA>
 __global__ void __launch_bounds__(k4_max_threads(KMAX, LAYERED), 1)
 qc_bp_resident_kernel(const float* __restrict__ llr, int8_t* __restrict__ dec,
                       float* __restrict__ out, ResidentGraph g, int n_iters,
-                      float scale, float offset) {
+                      float scale, float offset,
+                      unsigned long long* __restrict__ sweeps) {
   extern __shared__ __align__(16) float smem_f[];
   const int Z = g.Z;
   const int n = g.Nb * Z;
@@ -431,10 +432,11 @@ qc_bp_resident_kernel(const float* __restrict__ llr, int8_t* __restrict__ dec,
   for (int p = t; p < EZ; p += tpf) c2v[p] = 0.f;
   __syncthreads();
   const unsigned long long zinv = ((1ull << 32) + Z - 1) / Z;
+  int it = 0;  // the sweeps that updated the frame's messages, at the end
   if constexpr (LAYERED) {
     bool bad = __syncthreads_or(layered_bad(tot, s_edge, s_row, g.Mb, Z, t,
                                             tpf)) != 0;
-    for (int it = 0; it < n_iters && bad; ++it) {
+    for (; it < n_iters && bad; ++it) {
       for (int i = 0; i < g.Mb; ++i) {
         resident_row<KMAX, SPA>(tot, c2v, s_edge, s_row[i], Z, t, tpf, scale,
                                 offset);
@@ -459,7 +461,7 @@ qc_bp_resident_kernel(const float* __restrict__ llr, int8_t* __restrict__ dec,
       if (!kPos || k >= K0) break;
       pos0[kPos ? k : 0] = k4_pos(s_edge[e00 + k], z0, Z);
     }
-    for (int it = 0; it < n_iters; ++it) {
+    for (; it < n_iters; ++it) {
       // Each check reads its positions' totals (the raw LLRs' first) for
       // its v2c messages and its parity, and writes its new messages; once
       // every check passes the frame is done, its totals (the output)
@@ -524,6 +526,7 @@ qc_bp_resident_kernel(const float* __restrict__ llr, int8_t* __restrict__ dec,
     out[b * n + p] = a;
     dec[b * n + p] = signbit(a) ? 1 : 0;
   }
+  if (sweeps != nullptr && t == 0) atomicAdd(sweeps, (unsigned long long)it);
 }
 
 // ---------------------------------------------------------------------------
@@ -792,6 +795,7 @@ struct ResidentArgs {
   int B, threads, n_iters;
   size_t bytes;
   float scale, offset;
+  unsigned long long* sweeps;
   cudaStream_t stream;
 };
 
@@ -801,7 +805,8 @@ int launch_resident(const ResidentArgs& a) {
   const int rc = launch_smem(kernel, a.bytes);
   if (rc) return rc;
   kernel<<<a.B, a.threads, a.bytes, a.stream>>>(a.llr, a.dec, a.out, a.g,
-                                               a.n_iters, a.scale, a.offset);
+                                               a.n_iters, a.scale, a.offset,
+                                               a.sweeps);
   return (int)cudaGetLastError();
 }
 
@@ -820,13 +825,15 @@ int launch_resident_kmax(const ResidentArgs& a, int spa, int layered) {
 // The launch plan (kernels/qc_bp.py:resident_plan) gives kmax_t (the
 // compile-time row bound), the block's threads (whole warps) and the
 // shared memory bytes; a plan that does not hold the code is refused.
-// Block b decodes frame b.
+// Block b decodes frame b.  With `sweeps` set, each block adds to it the
+// sweeps that updated its frame's messages: 0 for a frame whose
+// decisions pass every check at the start, else up to n_iters.
 extern "C" int qc_bp_resident_launch(
     const float* llr, int8_t* dec, float* out, const int* edge,
     const int* row, const int* col, const int* cedge, int Z, int Nb, int Mb,
     int E, int kmax, int kmax_t, int B, int threads, int smem_bytes,
     int n_iters, int spa, int layered, float scale, float offset,
-    void* stream) {
+    unsigned long long* sweeps, void* stream) {
   const size_t need =
       sizeof(float) * ((size_t)Nb * Z + (size_t)E * Z) +
       sizeof(int) * ((size_t)2 * E + Mb + Nb);
@@ -837,7 +844,7 @@ extern "C" int qc_bp_resident_launch(
   }
   const ResidentGraph g{edge, row, col, cedge, Z, Nb, Mb, E};
   const ResidentArgs a{llr,    dec,    out,   g, B, threads, n_iters,
-                       (size_t)smem_bytes, scale, offset,
+                       (size_t)smem_bytes, scale, offset, sweeps,
                        (cudaStream_t)stream};
   switch (kmax_t) {
     case 8: return launch_resident_kmax<8>(a, spa, layered);

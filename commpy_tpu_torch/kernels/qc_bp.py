@@ -68,6 +68,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import profiling
 from ..utils.device import device_constant
 from . import (H100_SMS, SM_BLOCKS, SM_SMEM, SMEM_LIMIT, SMEM_PER_BLOCK,
                _build, sm_count)
@@ -403,7 +404,8 @@ def _flooding_totals(llr, c2v, g, dev):
     return tot.reshape(B, Nb * Z)
 
 
-def _flooding_plain(llr, g, algorithm, n_iters, msa_scale, msa_offset):
+def _flooding_plain(llr, g, algorithm, n_iters, msa_scale, msa_offset,
+                    sweeps=None):
     dev = llr.device
     B = llr.shape[0]
     E, Z = g["E"], g["Z"]
@@ -418,6 +420,8 @@ def _flooding_plain(llr, g, algorithm, n_iters, msa_scale, msa_offset):
     for _ in range(int(n_iters)):
         if not bool(act.any()):
             break
+        if sweeps is not None:
+            sweeps += act.sum()
         tot = _flooding_totals(llr, c2v, g, dev)
         v2c = tot[:, vidx] - c2v  # [B, E, Z]
         # rows padded to Kmax slots with a neutral +3e38 (tanh -> 1, and
@@ -435,7 +439,7 @@ def _flooding_plain(llr, g, algorithm, n_iters, msa_scale, msa_offset):
 
 
 def _layered_plain(llr, g, algorithm, n_iters, msa_scale, msa_offset,
-                   bf16=False):
+                   bf16=False, sweeps=None):
     dev = llr.device
     B = llr.shape[0]
     E, Z = g["E"], g["Z"]
@@ -448,6 +452,8 @@ def _layered_plain(llr, g, algorithm, n_iters, msa_scale, msa_offset,
     for _ in range(int(n_iters)):
         if not bool(act.any()):
             break
+        if sweeps is not None:
+            sweeps += act.sum()
         a2, a3 = act[:, None], act[:, None, None]
         for i in range(g["Mb"]):
             e0, e1 = int(rs[i]), int(rs[i + 1])
@@ -474,15 +480,20 @@ def qc_bp_resident_plain(llr: torch.Tensor, algorithm: str, n_iters: int,
                          meta, schedule: str = "flooding",
                          msa_scale: float = 1.0, msa_offset: float = 0.0):
     """Plain PyTorch version of the resident kernel (same inputs and
-    outputs): returns (dec ``[B, n]`` int8, posterior ``[B, n]``)."""
+    outputs): returns (dec ``[B, n]`` int8, posterior ``[B, n]``).  Counts
+    its sweeps and frames as the kernel does (:func:`qc_bp_resident`)."""
     _check(llr, algorithm, meta, n_iters)
     if schedule not in ("flooding", "layered"):
         raise ValueError('schedule must be "flooding" or "layered"')
     g = _graph(meta)
+    sweeps = _sweep_counter(llr.device) if profiling.recording() else None
+    if sweeps is not None:
+        qc_bp_resident.frames += llr.shape[0]
     if schedule == "layered":
         return _layered_plain(llr, g, algorithm, n_iters, msa_scale,
-                              msa_offset)
-    return _flooding_plain(llr, g, algorithm, n_iters, msa_scale, msa_offset)
+                              msa_offset, sweeps=sweeps)
+    return _flooding_plain(llr, g, algorithm, n_iters, msa_scale, msa_offset,
+                           sweeps=sweeps)
 
 
 def qc_bp_streamed_plain(llr: torch.Tensor, algorithm: str, n_iters: int,
@@ -508,7 +519,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("qc_bp")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.qc_bp_resident_launch.argtypes = [p, p, p, p, p, p, p, *[i] * 12,
-                                          f, f, p]
+                                          f, f, p, p]
     lib.qc_bp_resident_launch.restype = i
     lib.qc_bp_streamed_launch.argtypes = [p, p, p, p, p, p, p, *[i] * 14,
                                           f, f, p]
@@ -523,13 +534,31 @@ def _check_cuda(llr, name):
         raise ValueError("llr must be contiguous")
 
 
+def _sweep_counter(dev) -> torch.Tensor:
+    """``qc_bp_resident.sweeps`` as an int64 scalar on ``dev``, made (or
+    moved) at the first counted launch there."""
+    s = qc_bp_resident.sweeps
+    if not (isinstance(s, torch.Tensor) and s.device == dev):
+        s = qc_bp_resident.sweeps = torch.as_tensor(
+            s, dtype=torch.int64).to(dev)
+    return s
+
+
 def qc_bp_resident(llr: torch.Tensor, algorithm: str, n_iters: int, meta,
                    schedule: str = "flooding", msa_scale: float = 1.0,
                    msa_offset: float = 0.0):
     """Resident QC BP (K4): returns (dec ``[B, n]`` int8, posterior
     ``[B, n]`` float32).  CUDA tensors launch the kernel; CPU tensors run
     :func:`qc_bp_resident_plain`.  On either device, raises for a code
-    the kernel refuses (:func:`resident_plan`)."""
+    the kernel refuses (:func:`resident_plan`).
+
+    Counters: ``qc_bp_resident.launches``, every launch; while a profiler
+    records (:func:`~commpy_tpu_torch.utils.profiling.recording`), also
+    ``qc_bp_resident.frames`` (a host int, the frames decoded) and
+    ``qc_bp_resident.sweeps`` (an int64 scalar on the device, the sweeps
+    that updated a frame's messages summed over the frames: 0 for a frame
+    whose decisions already pass every check, else at most ``n_iters``).
+    Reset them by assigning 0; reading ``sweeps`` waits for the device."""
     _check(llr, algorithm, meta, n_iters)
     if schedule not in ("flooding", "layered"):
         raise ValueError('schedule must be "flooding" or "layered"')
@@ -545,6 +574,7 @@ def qc_bp_resident(llr: torch.Tensor, algorithm: str, n_iters: int, meta,
     dec = torch.empty((B, n), dtype=torch.int8, device=dev)
     out = torch.empty((B, n), dtype=torch.float32, device=dev)
     if B:
+        sweeps = _sweep_counter(dev) if profiling.recording() else None
         with torch.cuda.device(dev):
             rc = _lib().qc_bp_resident_launch(
                 llr.data_ptr(), dec.data_ptr(), out.data_ptr(),
@@ -554,15 +584,20 @@ def qc_bp_resident(llr: torch.Tensor, algorithm: str, n_iters: int, meta,
                 B, plan["threads"], plan["smem_bytes"], int(n_iters),
                 int(algorithm == "SPA"), int(schedule == "layered"),
                 float(msa_scale), float(msa_offset),
+                None if sweeps is None else sweeps.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
         if rc:
             raise RuntimeError(f"qc_bp_resident kernel launch failed: CUDA "
                                f"error {rc}")
         qc_bp_resident.launches += 1
+        if sweeps is not None:
+            qc_bp_resident.frames += B
     return dec, out
 
 
 qc_bp_resident.launches = 0
+qc_bp_resident.sweeps = 0
+qc_bp_resident.frames = 0
 
 
 def qc_bp_streamed(llr: torch.Tensor, algorithm: str, n_iters: int, meta,

@@ -9,8 +9,10 @@ XOR count.  The random draws and the deterministic chain are separate:
 complex noise and the channel draws as inputs, so tests can feed the JAX
 package and the port the same draws; it is ``decode(receive(...))``,
 where ``receive`` ends with the decoder's input.  Each stage runs under a
-``torch.profiler.record_function`` span named ``link.<stage>``, so a
-profile assigns device time by stage.
+:func:`~commpy_tpu_torch.utils.profiling.span` named ``link.<stage>``
+(``link.draw`` for the random draws of ``link_step``), so a profile
+assigns device time by stage; with no profiler recording a span costs
+next to nothing.
 
 Conventions follow the reference link stack: SNR_dB = (Eb/N0)_dB +
 10 log10(Rc * Mc); complex AWGN noise ``(re + 1j*im) * noise_std * 0.5``;
@@ -27,7 +29,6 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops import modem as M
 from ..ops import ofdm as OFDM
@@ -54,6 +55,7 @@ from ..ops.turbo import turbo_decode_device, turbo_encode_device
 from ..ops.viterbi import viterbi_decode_device
 from ..utils.device import device_constant, on_device, resolve_device
 from ..utils.linalg import small_matmul
+from ..utils.profiling import span
 from .idd import idd_decoder_device
 
 __all__ = ["DeviceLink", "make_conv_awgn_link", "make_rrc_conv_awgn_link",
@@ -140,12 +142,13 @@ def _counting_step(draw, transceive):
     errors of the frames (of ``rows`` of them, if given)."""
 
     def link_step(generator, n_frames, noise_std, rows=None):
-        bits, noise, *channel = draw(generator, n_frames)
-        if rows is not None:
-            bits, noise, *channel = (x[rows] for x in (bits, noise,
-                                                       *channel))
+        with span("link.draw"):
+            bits, noise, *channel = draw(generator, n_frames)
+            if rows is not None:
+                bits, noise, *channel = (x[rows] for x in (bits, noise,
+                                                           *channel))
         dec = transceive(bits, noise, noise_std, *channel)
-        with record_function("link.count_errors"):
+        with span("link.count_errors"):
             return torch.sum(torch.bitwise_xor(dec, bits), dtype=torch.int32)
 
     return link_step
@@ -198,17 +201,17 @@ def make_conv_awgn_link(
         tb_depth = min(5 * trellis.total_memory, frame_bits)
 
     def receive(bits, noise, noise_std):
-        with record_function("link.encode"):
+        with span("link.encode"):
             tx = (bits if scramble_seed is None
                   else scramble(bits, scramble_seed, device=dev))
             coded, _ = encode_scan(tx, trellis, device=dev)  # [F, n_coded]
             if keep is not None:
                 coded = coded[:, keep_idx]
-        with record_function("link.modulate_channel"):
+        with span("link.modulate_channel"):
             symbols = M.modulate(coded, const, bps, device=dev)  # [F, n_sym]
             ns = np.float32(noise_std)
             y = symbols + on_device(noise, dev) * float(ns * np.float32(0.5))
-        with record_function("link.demodulate"):
+        with span("link.demodulate"):
             if decoding_type == "soft":
                 rx = M.demodulate_soft(y, const, bps, ns * ns)
             elif decoding_type == "hard":
@@ -220,7 +223,7 @@ def make_conv_awgn_link(
         return rx
 
     def decode(rx):
-        with record_function("link.viterbi"):
+        with span("link.viterbi"):
             dec = viterbi_decode_device(rx, trellis, tb_depth, decoding_type,
                                         L=frame_bits, device=dev)
             if scramble_seed is not None:
@@ -274,16 +277,16 @@ def make_turbo_awgn_link(
                          f"{frame_bits} bits")
 
     def receive(bits, noise, noise_std):
-        with record_function("link.encode"):
+        with span("link.encode"):
             sys_b, par1_b, par2_b = turbo_encode_device(
                 bits, trellis, trellis, p_array, device=dev)
             tx = 2.0 * torch.stack([sys_b, par1_b, par2_b], -1).to(
                 torch.float32) - 1.0  # [F, L, 3]
-        with record_function("link.modulate_channel"):
+        with span("link.modulate_channel"):
             return tx + on_device(noise, dev) * float(np.float32(noise_std))
 
     def decode(y, noise_std):
-        with record_function("link.turbo_decode"):
+        with span("link.turbo_decode"):
             ns = np.float32(noise_std)
             return turbo_decode_device(
                 y[..., 0], y[..., 1], y[..., 2], trellis, ns * ns,
@@ -381,17 +384,17 @@ def make_qcldpc_awgn_link(
     encode = qc_encoder(qc_params, dev)
 
     def receive(bits, noise, noise_std):
-        with record_function("link.encode"):
+        with span("link.encode"):
             coded = encode(on_device(bits, dev))  # [F, n_v]
-        with record_function("link.modulate_channel"):
+        with span("link.modulate_channel"):
             ns = np.float32(noise_std)
             y = (M.modulate(coded, const, bps, device=dev)
                  + on_device(noise, dev) * float(ns * np.float32(0.5)))
-        with record_function("link.demodulate"):
+        with span("link.demodulate"):
             return -M.demodulate_soft(y, const, bps, ns * ns)
 
     def decode(llr):
-        with record_function("link.ldpc_decode"):
+        with span("link.ldpc_decode"):
             dec, _ = qc_bp_decode_device(llr, qc_params, algorithm,
                                          n_iterations, schedule=schedule,
                                          msa_scale=msa_scale,
@@ -439,16 +442,16 @@ def make_ldpc_rayleigh_link(
     G_dev = torch.as_tensor(G.astype(np.int8), device=dev)
 
     def receive(bits, noise, noise_std, *h):
-        with record_function("link.encode"):
+        with span("link.encode"):
             coded = ldpc_encode_device(bits, G_dev, device=dev)  # [F, n_v]
-        with record_function("link.modulate_channel"):
+        with span("link.modulate_channel"):
             symbols = M.modulate(coded, const, bps, device=dev)
             ns = np.float32(noise_std)
             gain = on_device(h[0], dev) if fading else torch.ones_like(
                 symbols)
             y = gain * symbols + on_device(noise, dev) * float(
                 ns * np.float32(0.5))
-        with record_function("link.demodulate"):
+        with span("link.demodulate"):
             # perfect-CSI equalisation; effective per-symbol noise variance
             z = y / gain
             nv = torch.full((), float(ns * ns), dtype=torch.float32,
@@ -457,7 +460,7 @@ def make_ldpc_rayleigh_link(
             return -M.demodulate_soft(z, const, bps, nv_eff)
 
     def decode(llr):
-        with record_function("link.ldpc_decode"):
+        with span("link.ldpc_decode"):
             dec, _ = ldpc_bp_decode_device(llr, ldpc_params, algorithm,
                                            n_iterations, device=dev)
             return dec[..., :frame_bits]
@@ -506,17 +509,17 @@ def make_kbest_mimo_link(
 
     def receive(bits, noise, noise_std, h):
         F = bits.shape[0]
-        with record_function("link.modulate_channel"):
+        with span("link.modulate_channel"):
             x = M.modulate(bits, const, bps, device=dev).reshape(F, nv, nb_tx)
             y, h = _mimo_channel(x, h, noise, noise_std)
-        with record_function("link.detect"):
+        with span("link.detect"):
             xh = kbest_device(y.reshape(-1, nb_rx),
                               h.reshape(-1, nb_rx, nb_tx), const, K,
                               device=dev)
             return xh.reshape(F, -1)
 
     def decode(xh):
-        with record_function("link.demodulate"):
+        with span("link.demodulate"):
             return M.demodulate_hard(xh, const, bps)
 
     def noise_std_fn(snr_db):
@@ -574,13 +577,13 @@ def make_bestfirst_ldpc_mimo_link(
 
     def receive(bits, noise, noise_std, h):
         F = bits.shape[0]
-        with record_function("link.encode"):
+        with span("link.encode"):
             coded = ldpc_encode_device(bits, G_dev, device=dev)  # [F, n_v]
-        with record_function("link.modulate_channel"):
+        with span("link.modulate_channel"):
             x = M.modulate(coded, const, bps, device=dev).reshape(
                 F, n_vec, nb_tx)
             y, h = _mimo_channel(x, h, noise, noise_std)
-        with record_function("link.detect"):
+        with span("link.detect"):
             yv, hv = y.reshape(-1, nb_rx), h.reshape(-1, nb_rx, nb_tx)
             if detector == "kbest":
                 ns = np.float32(noise_std)
@@ -593,7 +596,7 @@ def make_bestfirst_ldpc_mimo_link(
             return llrs.reshape(F, n_v)  # positive <=> bit 0
 
     def decode(llrs):
-        with record_function("link.ldpc_decode"):
+        with span("link.ldpc_decode"):
             dec, _ = ldpc_bp_decode_device(llrs, ldpc_params, algorithm,
                                            n_iterations, device=dev)
             return dec[..., :frame_bits]
@@ -642,16 +645,16 @@ def make_ofdm_mimo_conv_link(
 
     def receive(bits, noise, noise_std, h):
         F = bits.shape[0]
-        with record_function("link.encode"):
+        with span("link.encode"):
             coded, _ = encode_scan(bits, trellis, device=dev)
-        with record_function("link.modulate_channel"):
+        with span("link.modulate_channel"):
             symbols = M.modulate(coded, const, bps, device=dev)
             grids = symbols.reshape(F, nb_tx, n_ofdm_symbols, nsc).movedim(
                 -1, -2)  # [F, nt, nsc, n_ofdm]
             tx_time = OFDM.ofdm_tx(grids, nfft, nsc, cp_length, dev)
             h = on_device(h, dev)
             rx_time = _noisy(small_matmul(h, tx_time), noise, noise_std)
-        with record_function("link.detect"):
+        with span("link.detect"):
             rx_grids = OFDM.ofdm_rx(rx_time, nfft, nsc, cp_length, dev)
             rx_vec = rx_grids.movedim(1, -1)  # [F, nsc, n_ofdm, nr]
             h_rep = h[:, None].expand(F, n_vec, nb_rx, nb_tx)
@@ -666,7 +669,7 @@ def make_ofdm_mimo_conv_link(
             return -llrs.permute(0, 3, 2, 1, 4).reshape(F, -1)
 
     def decode(llrs):
-        with record_function("link.viterbi"):
+        with span("link.viterbi"):
             return viterbi_decode_device(llrs, trellis, tb_depth, "soft",
                                          L=frame_bits, device=dev)
 
@@ -748,9 +751,9 @@ def make_ofdm_qcldpc_link(
 
     def receive(bits, noise, noise_std, g):
         F = bits.shape[0]
-        with record_function("link.encode"):
+        with span("link.encode"):
             coded = encode(on_device(bits, dev))  # [F, n_v]
-        with record_function("link.modulate_channel"):
+        with span("link.modulate_channel"):
             symbols = M.modulate(coded, const, bps, device=dev)
             grids = symbols.reshape(F, n_ofdm, nsc).movedim(-1, -2)
             if csi != "perfect":
@@ -767,7 +770,7 @@ def make_ofdm_qcldpc_link(
             if cfo:
                 rx = add_frequency_offset(rx, float(nfft), cfo, dev)
             rx = _noisy(rx, noise, noise_std)
-        with record_function("link.sync_equalize"):
+        with span("link.sync_equalize"):
             if cfo_correction:
                 eps = cfo_estimate_cp(rx, nfft, cp_length, n_blocks, dev)
                 rx = cfo_correct(rx, eps, nfft, device=dev)
@@ -789,11 +792,11 @@ def make_ofdm_qcldpc_link(
             z = z.movedim(-1, -2).reshape(F, n_sym)
             nv_eff = nv_eff.expand(F, nsc, n_ofdm).movedim(-1, -2).reshape(
                 F, n_sym)
-        with record_function("link.demodulate"):
+        with span("link.demodulate"):
             return -M.demodulate_soft(z, const, bps, nv_eff)
 
     def decode(llr):
-        with record_function("link.ldpc_decode"):
+        with span("link.ldpc_decode"):
             dec, _ = qc_bp_decode_device(llr, qc_params, algorithm,
                                          n_iterations, msa_scale=msa_scale,
                                          device=dev)
@@ -854,20 +857,20 @@ def make_rrc_conv_awgn_link(
 
     def receive(bits, noise, noise_std):
         taps_d = device_constant(taps, dev)
-        with record_function("link.encode"):
+        with span("link.encode"):
             coded, _ = encode_scan(bits, trellis, device=dev)
-        with record_function("link.modulate_channel"):
+        with span("link.modulate_channel"):
             symbols = M.modulate(coded, const, bps, device=dev)
             wave = upfirdn(symbols, taps_d, up=sps, device=dev)
             y = _noisy(wave, noise, noise_std)
-        with record_function("link.demodulate"):
+        with span("link.demodulate"):
             mf = fir_filter(y, taps_d, "full", device=dev)
             sampled = mf[:, delay:delay + n_sym * sps:sps]
             ns = np.float32(noise_std)
             return demod(sampled, const, bps, ns * ns)
 
     def decode(llr):
-        with record_function("link.viterbi"):
+        with span("link.viterbi"):
             return viterbi_decode_device(llr, trellis, tb_depth,
                                          decoding_type, L=frame_bits,
                                          device=dev)
@@ -914,13 +917,13 @@ def make_isi_conv_link(
 
     def receive(bits, noise, noise_std):
         h = device_constant(h_np, dev)
-        with record_function("link.encode"):
+        with span("link.encode"):
             coded, _ = encode_scan(bits, trellis, device=dev)
-        with record_function("link.modulate_channel"):
+        with span("link.modulate_channel"):
             symbols = M.modulate(coded, const, bps, device=dev)
             rx = fir_filter(symbols, h, "full", device=dev)[..., :n_sym]
             y = _noisy(rx, noise, noise_std)
-        with record_function("link.equalize"):
+        with span("link.equalize"):
             # MMSE design at this noise level (PSK symbols have unit
             # power; noise_var is the complex variance)
             ns = np.float32(noise_std)
@@ -932,11 +935,11 @@ def make_isi_conv_link(
             pvec = _conv_matrix(h, n_eq_taps)[:, delay]
             mse = 1.0 - torch.sum(pvec * w).real
             mse = torch.clamp_min(mse, float(noise_var * np.float32(1e-2)))
-        with record_function("link.demodulate"):
+        with span("link.demodulate"):
             return M.demodulate_soft(z, const, bps, mse.reshape(1))
 
     def decode(llr):
-        with record_function("link.viterbi"):
+        with span("link.viterbi"):
             return viterbi_decode_device(llr, trellis, tb_depth, "soft",
                                          L=frame_bits, device=dev)
 
@@ -983,19 +986,19 @@ def make_bch_awgn_link(
         chase = make_bch_chase_decoder(code, p=chase_p, device=dev)
 
     def receive(bits, noise, noise_std):
-        with record_function("link.encode"):
+        with span("link.encode"):
             cw = encode(bits)
-        with record_function("link.modulate_channel"):
+        with span("link.modulate_channel"):
             y = _noisy(M.modulate(cw, const, bps, device=dev), noise,
                        noise_std)
-        with record_function("link.demodulate"):
+        with span("link.demodulate"):
             if decoder == "chase":
                 ns = np.float32(noise_std)
                 return M.demodulate_soft(y, const, bps, ns * ns)
             return M.demodulate_hard(y, const, bps)
 
     def decode(rx):
-        with record_function("link.bch_decode"):
+        with span("link.bch_decode"):
             if decoder == "chase":
                 corrected, _, _ = chase((rx > 0).to(torch.int8),
                                         torch.abs(rx))
@@ -1048,14 +1051,14 @@ def make_rs_awgn_link(
 
     def receive(bits, noise, noise_std):
         F = bits.shape[0]
-        with record_function("link.encode"):
+        with span("link.encode"):
             msg = _bits_to_sym(on_device(bits, dev).reshape(F, code.k, m),
                                m)
             cw_bits = _sym_to_bits(encode(msg), m).reshape(F, -1)
-        with record_function("link.modulate_channel"):
+        with span("link.modulate_channel"):
             y = _noisy(M.modulate(cw_bits.to(torch.int8), const, bps,
                                   device=dev), noise, noise_std)
-        with record_function("link.demodulate"):
+        with span("link.demodulate"):
             if decoder == "gmd":
                 ns = np.float32(noise_std)
                 return M.demodulate_soft(y, const, bps, ns * ns)
@@ -1063,7 +1066,7 @@ def make_rs_awgn_link(
 
     def decode(rx):
         F = rx.shape[0]
-        with record_function("link.rs_decode"):
+        with span("link.rs_decode"):
             rx_syms = _bits_to_sym((rx > 0).reshape(F, code.n, m), m)
             if decoder == "gmd":
                 rel = torch.amin(torch.abs(rx).reshape(F, code.n, m), dim=-1)
@@ -1112,20 +1115,20 @@ def make_dvbs2_concat_link(
     dec_bch = make_bch_decoder(outer, device=dev)
 
     def receive(bits, noise, noise_std):
-        with record_function("link.encode"):
+        with span("link.encode"):
             cw = dvbs2_encode_device(enc_bch(bits), qc_params, device=dev)
-        with record_function("link.modulate_channel"):
+        with span("link.modulate_channel"):
             y = _noisy(M.modulate(cw, const, bps, device=dev), noise,
                        noise_std)
-        with record_function("link.demodulate"):
+        with span("link.demodulate"):
             ns = np.float32(noise_std)
             return -M.demodulate_soft(y, const, bps, ns * ns)
 
     def decode(llr):
-        with record_function("link.ldpc_decode"):
+        with span("link.ldpc_decode"):
             dec, _ = dvbs2_decode_device(llr, qc_params, "MSA", n_iterations,
                                          msa_scale=0.75, device=dev)
-        with record_function("link.bch_decode"):
+        with span("link.bch_decode"):
             corrected, _, _ = dec_bch(dec[:, :kldpc].to(torch.int8))
             return corrected[:, :outer.k]
 
@@ -1175,18 +1178,18 @@ def make_polar_awgn_link(
             device=dev)
 
     def receive(bits, noise, noise_std):
-        with record_function("link.encode"):
+        with span("link.encode"):
             x = P.polar_rate_match(code, encode(bits), device=dev)  # [F, E]
-        with record_function("link.modulate_channel"):
+        with span("link.modulate_channel"):
             y = _noisy(M.modulate(x, const, bps, device=dev), noise,
                        noise_std)
-        with record_function("link.demodulate"):
+        with span("link.demodulate"):
             ns = np.float32(noise_std)
             return P.polar_rate_recover(
                 code, -M.demodulate_soft(y, const, bps, ns * ns), device=dev)
 
     def decode(llr):
-        with record_function("link.polar_decode"):
+        with span("link.polar_decode"):
             return polar_decode(llr)
 
     return _link_parts(
@@ -1276,13 +1279,13 @@ def make_idd_kbest_ldpc_mimo_link(
 
     def receive(bits, noise, noise_std, h):
         F = bits.shape[0]
-        with record_function("link.encode"):
+        with span("link.encode"):
             coded = ldpc_encode_device(bits, G_dev, device=dev)  # [F, n_v]
-        with record_function("link.modulate_channel"):
+        with span("link.modulate_channel"):
             x = M.modulate(coded, const, bps, device=dev).reshape(
                 F, n_vec, nb_tx)
             y, h = _mimo_channel(x, h, noise, noise_std)
-        with record_function("link.detect"):
+        with span("link.detect"):
             yv, hv = y.reshape(-1, nb_rx), h.reshape(-1, nb_rx, nb_tx)
             ns = np.float32(noise_std)
             nv = ns * ns
@@ -1291,7 +1294,7 @@ def make_idd_kbest_ldpc_mimo_link(
             return yv, hv, nv, a0.reshape(-1)
 
     def decode(rx):
-        with record_function("link.idd_decode"):
+        with span("link.idd_decode"):
             return idd(*rx)
 
     def noise_std_fn(snr_db):

@@ -15,13 +15,18 @@ and the tallies are summed over the ranks (one all-reduce a round): a
 round's tallies do not depend on the mesh, and every rank takes the same
 stopping decision.  The draw is repeated on every rank; it costs little
 next to a decode.
+
+Under a profiler the engine's host work is named on the timeline
+(``utils.profiling.span``): ``mc.sweep`` around ``montecarlo_ber``,
+``mc.round`` around a round, and inside it ``mc.seed`` (the round's
+generators) and ``mc.tally`` (the tallies' stack, the all-reduce with a
+mesh, and their read-back: the round's one sync).
 """
 from __future__ import annotations
 
 import json
 import logging
 import os
-import time
 from dataclasses import dataclass
 from typing import Callable, Optional, Sequence
 
@@ -30,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .mesh import DeviceMesh, axis_index, axis_size, check_axis, psum
 
 __all__ = ["MonteCarloResult", "montecarlo_ber", "make_round_fn"]
@@ -85,16 +91,18 @@ def make_round_fn(link_step: Callable, noise_stds: Sequence[float],
         rows = slice(r * per, (r + 1) * per)
 
     def round_fn(seed: int, rnd: int) -> np.ndarray:
-        gens = [_round_generator(seed, rnd, i, dev)
-                for i in range(len(noise_stds))]
-        if rows is None:
-            errs = torch.stack([link_step(g, frames_per_round, ns)
-                                for g, ns in zip(gens, noise_stds)])
-        else:
-            errs = psum(torch.stack(
-                [link_step(g, frames_per_round, ns, rows=rows)
-                 for g, ns in zip(gens, noise_stds)]).to(torch.int64), mesh)
-        return errs.cpu().numpy().astype(np.int64)
+        with span("mc.round"):
+            with span("mc.seed"):
+                gens = [_round_generator(seed, rnd, i, dev)
+                        for i in range(len(noise_stds))]
+            shard = {} if rows is None else {"rows": rows}
+            errs = [link_step(g, frames_per_round, ns, **shard)
+                    for g, ns in zip(gens, noise_stds)]
+            with span("mc.tally"):
+                errs = torch.stack(errs)
+                if rows is not None:
+                    errs = psum(errs.to(torch.int64), mesh)
+                return errs.cpu().numpy().astype(np.int64)
 
     round_fn.frames_per_round = frames_per_round
     round_fn.noise_stds = np.asarray(noise_stds)
@@ -141,79 +149,76 @@ def montecarlo_ber(
         ``mesh`` (see :func:`make_round_fn`); every rank calls the sweep
         and returns the same result.
     """
-    snrs_db = np.atleast_1d(np.asarray(snrs_db, float))
-    noise_stds = np.asarray([float(noise_std_fn(s)) for s in snrs_db])
-    if round_fn is None:
-        round_fn = make_round_fn(link_step, noise_stds, frames_per_round,
-                                 device, mesh, axis_name)
-    else:
-        fpr = getattr(round_fn, "frames_per_round", None)
-        if fpr is not None and fpr != frames_per_round:
-            raise ValueError(
-                f"round_fn was built with frames_per_round={fpr}, sweep "
-                f"requested {frames_per_round}")
-        ns = getattr(round_fn, "noise_stds", None)
-        if ns is not None and not np.allclose(ns, noise_stds):
-            raise ValueError(
-                "round_fn was built with different noise_stds than this "
-                "sweep's snrs_db/noise_std_fn produce")
+    with span("mc.sweep"):
+        snrs_db = np.atleast_1d(np.asarray(snrs_db, float))
+        noise_stds = np.asarray([float(noise_std_fn(s)) for s in snrs_db])
+        if round_fn is None:
+            round_fn = make_round_fn(link_step, noise_stds, frames_per_round,
+                                     device, mesh, axis_name)
+        else:
+            fpr = getattr(round_fn, "frames_per_round", None)
+            if fpr is not None and fpr != frames_per_round:
+                raise ValueError(
+                    f"round_fn was built with frames_per_round={fpr}, sweep "
+                    f"requested {frames_per_round}")
+            ns = getattr(round_fn, "noise_stds", None)
+            if ns is not None and not np.allclose(ns, noise_stds):
+                raise ValueError(
+                    "round_fn was built with different noise_stds than this "
+                    "sweep's snrs_db/noise_std_fn produce")
 
-    n_snr = len(snrs_db)
-    bits_per_round = frames_per_round * frame_bits
-    if send_max is None:
-        send_max = bits_per_round * max_rounds
+        n_snr = len(snrs_db)
+        bits_per_round = frames_per_round * frame_bits
+        if send_max is None:
+            send_max = bits_per_round * max_rounds
 
-    tot_err = np.zeros(n_snr)
-    tot_bits = np.zeros(n_snr)
-    active = np.ones(n_snr, bool)
-    start_round = 0
-    writer = mesh is None or axis_index(mesh) == 0
-    st = None
-    if checkpoint_path and writer and os.path.exists(checkpoint_path):
-        with open(checkpoint_path) as f:
-            st = json.load(f)
-    if checkpoint_path and mesh is not None:
-        box = [st]
-        group = mesh.get_group()
-        dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
-                                   group=group)
-        st = box[0]
-    if st is not None:
-        if st["snrs_db"] == list(map(float, snrs_db)):
-            tot_err = np.asarray(st["bit_errors"], float)
-            tot_bits = np.asarray(st["bits_sent"], float)
-            # activity is recomputed against THIS run's limits
-            active = (tot_err < err_min) & (tot_bits < send_max)
-            start_round = int(st["round"])
-            logger.info("resumed sweep from %s at round %d",
-                        checkpoint_path, start_round)
+        tot_err = np.zeros(n_snr)
+        tot_bits = np.zeros(n_snr)
+        active = np.ones(n_snr, bool)
+        start_round = 0
+        writer = mesh is None or axis_index(mesh) == 0
+        st = None
+        if checkpoint_path and writer and os.path.exists(checkpoint_path):
+            with open(checkpoint_path) as f:
+                st = json.load(f)
+        if checkpoint_path and mesh is not None:
+            box = [st]
+            group = mesh.get_group()
+            dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0),
+                                       group=group)
+            st = box[0]
+        if st is not None:
+            if st["snrs_db"] == list(map(float, snrs_db)):
+                tot_err = np.asarray(st["bit_errors"], float)
+                tot_bits = np.asarray(st["bits_sent"], float)
+                # activity is recomputed against THIS run's limits
+                active = (tot_err < err_min) & (tot_bits < send_max)
+                start_round = int(st["round"])
+                logger.info("resumed sweep from %s at round %d",
+                            checkpoint_path, start_round)
 
-    rounds = start_round
-    for r in range(start_round, max_rounds):
-        if not active.any():
-            break
-        t0 = time.perf_counter()
-        errs = round_fn(seed, r)
-        dt = time.perf_counter() - t0
-        tot_err[active] += errs[active]
-        tot_bits[active] += bits_per_round
-        rounds = r + 1
-        active &= (tot_err < err_min) & (tot_bits < send_max)
-        logger.info("round %d: %d/%d SNR points active, %.3g bits/s",
-                    rounds, int(active.sum()), n_snr,
-                    n_snr * bits_per_round / dt)
-        if checkpoint_path and writer:
-            tmp = checkpoint_path + ".tmp"
-            with open(tmp, "w") as f:
-                json.dump({
-                    "snrs_db": list(map(float, snrs_db)),
-                    "bit_errors": tot_err.tolist(),
-                    "bits_sent": tot_bits.tolist(),
-                    "active": active.tolist(),
-                    "round": rounds,
-                }, f)
-            os.replace(tmp, checkpoint_path)
+        rounds = start_round
+        for r in range(start_round, max_rounds):
+            if not active.any():
+                break
+            errs = round_fn(seed, r)
+            tot_err[active] += errs[active]
+            tot_bits[active] += bits_per_round
+            rounds = r + 1
+            active &= (tot_err < err_min) & (tot_bits < send_max)
+            if checkpoint_path and writer:
+                tmp = checkpoint_path + ".tmp"
+                with open(tmp, "w") as f:
+                    json.dump({
+                        "snrs_db": list(map(float, snrs_db)),
+                        "bit_errors": tot_err.tolist(),
+                        "bits_sent": tot_bits.tolist(),
+                        "active": active.tolist(),
+                        "round": rounds,
+                    }, f)
+                os.replace(tmp, checkpoint_path)
 
-    with np.errstate(invalid="ignore"):
-        bers = np.where(tot_bits > 0, tot_err / np.maximum(tot_bits, 1), 0.0)
-    return MonteCarloResult(snrs_db, bers, tot_err, tot_bits, rounds)
+        with np.errstate(invalid="ignore"):
+            bers = np.where(tot_bits > 0,
+                            tot_err / np.maximum(tot_bits, 1), 0.0)
+        return MonteCarloResult(snrs_db, bers, tot_err, tot_bits, rounds)

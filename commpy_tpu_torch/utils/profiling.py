@@ -8,7 +8,32 @@ Counterpart of ``commpy_tpu/utils/profiling.py``:
 * :class:`Throughput`: an items/s meter that synchronises the card around
   its clock, so queued kernels count toward the block that launched them;
 * :func:`benchmark`: median wall-clock seconds a call, synchronising after
-  each call.
+  each call;
+* :func:`span`: the port's one way to mark host work on the profiler's
+  timeline, a ``record_function`` while a profiler records and a shared
+  no-op otherwise (:func:`recording`), so that an unprofiled run pays
+  well under a microsecond a span, where an idle ``record_function``
+  costs several.
+
+The spans are ``mc.sweep`` (all of ``montecarlo_ber``), ``mc.round``
+(one round of ``make_round_fn``), inside it ``mc.seed`` (the round's
+generators) and ``mc.tally`` (the stack of its tallies and their read
+back to the host, the round's one sync; the mesh's all-reduce too), and
+the link stages ``link.<stage>`` of ``models/device_links.py``,
+``link.draw`` first.  Kineto puts them and the device's kernels on one
+timeline, linked by correlation id.
+
+To see where a sweep's time goes, and how many belief-propagation sweeps
+the resident QC kernel (K4) ran::
+
+    from commpy_tpu_torch.kernels.qc_bp import qc_bp_resident as k4
+    k4.sweeps = k4.frames = 0
+    with trace("traces"):  # the Chrome trace goes to traces/
+        res = montecarlo_ber(link.link_step, snrs, link.noise_std_fn, ...)
+    mean_sweeps = int(k4.sweeps) / k4.frames
+
+``qc_bp_resident`` counts only while a profiler records; reading
+``sweeps`` waits for the device once.
 """
 from __future__ import annotations
 
@@ -18,8 +43,24 @@ import time
 from typing import Callable
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import record_function
 
-__all__ = ["trace", "Throughput", "benchmark"]
+__all__ = ["trace", "Throughput", "benchmark", "span", "recording"]
+
+_OFF = contextlib.nullcontext()
+
+
+def recording() -> bool:
+    """True while a ``torch.profiler`` session records (the flag that
+    ``torch.profiler.profile`` sets on entry and clears on exit)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function(name)`` while a profiler
+    records, else one shared no-op context."""
+    return record_function(name) if recording() else _OFF
 
 
 def _sync():
