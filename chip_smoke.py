@@ -4,7 +4,12 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the CUDA kernels from ``commpy_tpu_torch/kernels/csrc``;
+2. builds the CUDA kernels from ``commpy_tpu_torch/kernels/csrc``, then
+   holds K6, the joint demapper, against its plain version bit for bit
+   (16-QAM at the benchmark cells' shapes, 15M symbols, exact and
+   max-log; every order it takes, scalar and per-symbol noise variances,
+   far-out symbols) and times it beside its bound, the plain version and
+   the per-axis path (``k6_phase``);
 3. holds each kernel against its plain PyTorch version on the card, bit
    for bit: the bench shape (K=7 soft, B=2048, L=1024, tb_depth=30), the
    802.11 MCS-4 shape (B=2048, L=1200) and small odd shapes (S = 2, 4, 8,
@@ -21,8 +26,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    frame_bits=1200) at F=2048 frames per step at 12 dB through
    ``montecarlo_ber``, plus the physics checks (uncoded QPSK BER against
    erfc, K=7 soft beating that uncoded curve by more than 10x at 2 dB, and
-   ``errs(35 dB) == 0 < errs(5 dB)`` at MCS-4); both kernels' launch
-   counters must rise during this phase;
+   ``errs(35 dB) == 0 < errs(5 dB)`` at MCS-4); K1's, K2's and K6's
+   launch counters must rise during this phase.  From here on every path
+   counts K6's launches (``K6Watch``): the soft-demapping ones (MCS-4, A,
+   D-G, H-L, M, O, P) must launch it, and on every path a joint-path call
+   on the card that reaches the plain demapper where K6 should have run
+   fails the script;
 5. holds the QC-LDPC kernels against their plain versions: the resident
    kernel K4 on all twelve 802.11n codes and WiMAX 1440 (lifted to QC
    form), MSA and SPA, flooding and layered, msa_scale=0.75, B = 1, 3,
@@ -40,7 +49,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    versions also run on the host CPU;
 6. Path A: the 802.11n LDPC link (1944, rate 1/2, 16-QAM, MSA 15) at
    F=512 frames per step at 10 dB through ``montecarlo_ber``, with K4's
-   launch counter rising, and its physics checks (1944 BPSK at Eb/N0
+   and K6's launch counters rising, and its physics checks (1944 BPSK at Eb/N0
    2.5 dB with SPA-30 under BER 1e-3, layered-8 errors <= flooding-15
    errors, ``errs(35 dB) == 0 < errs(5 dB)`` on the 16-QAM link);
 7. Path B: ``dvbs2_decode_device`` on the DVB-S2-class code and the NR
@@ -212,6 +221,7 @@ QC_SOURCE = "commpy_tpu_torch/kernels/csrc/qc_bp.cu"
 # sign product, the total update and the syndrome's XOR
 MSA_OPS_PER_EDGE = 15
 BCJR_SOURCE = "commpy_tpu_torch/kernels/csrc/bcjr.cu"
+DEMAP_SOURCE = "commpy_tpu_torch/kernels/csrc/demap.cu"
 # exp and log1p on the special-function units: 16 per SM per clock, at the
 # 1.98 GHz behind F32_OPS_PER_S (132 SMs x 128 lanes x 2 x 1.98 GHz)
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
@@ -283,7 +293,7 @@ def ms_str(ms, digits=4):
 
 KERNEL_NAMES = ("acs_warp_kernel", "acs_forward_kernel", "traceback_kernel",
                 "qc_bp_resident_kernel", "qc_bp_streamed_kernel",
-                "bcjr_kernel")
+                "bcjr_kernel", "demap_joint_kernel")
 
 
 def ptxas_report(paths):
@@ -1159,6 +1169,173 @@ def k3_bound_ms(nbytes, flops, sfu):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(flops / F32_INSTR_PER_S, sfu / SFU_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k6_bound(n, m, maxlog=False):
+    """Least work of one K6 call on ``n`` symbols of an ``m``-point
+    constellation: the symbols (8 bytes) read and ``log2(m)`` float32 LLRs
+    written once; per point the distance's 5 float operations and the
+    division; per bit and half (m/2 points) m/2 - 1 maxima and, for the
+    exact LLR, the maximum's test, m/2 subtractions, m/2 - 1 adds and the
+    add after the log; a subtraction a bit; and for the exact LLR m exps
+    and 2 logs a bit on the special-function units.  Returns (bytes, float
+    operations, special operations) for :func:`k3_bound_ms`."""
+    bps = int(np.log2(m))
+    h = m // 2
+    half = h - 1 + (0 if maxlog else 1 + h + h - 1 + 1)
+    flops = n * (6 * m + bps * (2 * half + 1))
+    sfu = 0 if maxlog else n * bps * (m + 2)
+    return n * (8 + 4 * bps), flops, sfu
+
+
+def k6_symbols(torch, const, shape, snr_db, seed, dev, per_symbol=False):
+    """Noisy symbols of ``const`` at Es/N0 ``snr_db`` and their noise
+    variance: a float32 scalar, or with ``per_symbol`` a variance a symbol
+    drawn from 0.5x to 2x it (faded links' effective variances)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pts = torch.as_tensor(const, device=dev)
+    es = float(np.mean(np.abs(const) ** 2))
+    sd = float(np.sqrt(es / 2 / 10 ** (snr_db / 10)))
+    idx = torch.randint(0, len(const), shape, generator=gen, device=dev)
+    z = torch.randn((2,) + tuple(shape), generator=gen, device=dev)
+    y = pts[idx] + torch.complex(z[0], z[1]) * sd
+    nv = np.float32(2 * sd * sd)
+    if per_symbol:
+        nv = float(nv) * 2 ** (torch.rand(shape, generator=gen, device=dev)
+                               * 2 - 1)
+    return y, nv
+
+
+def k6_phase(torch, report):
+    """K6 against its plain version on the card, bit for bit: 16-QAM at the
+    benchmark cells' shapes (F=2048 x 2688 symbols at 9 and 13 dB, F=4096
+    x 486 at 11 and 12.5 dB; 15M symbols, exact and max-log), every order
+    K6 takes (2-64 PSK and 4-64 QAM) with scalar and per-symbol noise
+    variances, and far-out symbols; then its time at both cell shapes by
+    CUDA events and torch.profiler beside its bound, the plain version's
+    time and the per-axis (separable) path's on the same 16-QAM input."""
+    from commpy_tpu_torch.kernels import demap as DK
+    from commpy_tpu_torch.ops import modem as M
+
+    dev = torch.device("cuda")
+    qam16 = M.qam_constellation(16).astype(np.complex64)
+    cases = [(qam16, (2048, 2688), snr, False) for snr in (9.0, 13.0)]
+    cases += [(qam16, (4096, 486), snr, False) for snr in (11.0, 12.5)]
+    for m in DK.ORDERS:
+        cases.append((M.psk_constellation(m).astype(np.complex64),
+                      (256, 1000), 8.0, True))
+        if m in (4, 16, 64):
+            cases.append((M.qam_constellation(m).astype(np.complex64),
+                          (256, 1000), 14.0, True))
+    out = {"symbols": 0, "llrs": 0, "mismatches": 0, "max_ulp": 0}
+    for i, (const, shape, snr, per_symbol) in enumerate(cases):
+        y, nv = k6_symbols(torch, const, shape, snr, 600 + i, dev,
+                           per_symbol)
+        variants = [(y, nv)]
+        if per_symbol:  # far out: one symbol in 8 scaled by 1e3 to 1e9
+            far = 10.0 ** torch.randint(3, 10, shape, device=dev)
+            keep = torch.rand(shape, device=dev) < 0.875
+            variants.append((torch.where(keep, y, y * far),
+                             np.float32(1e-4)))
+        bps = int(np.log2(len(const)))
+        for yy, v in variants:
+            for maxlog in (False, True):
+                got = DK.demap_joint(yy, const, v, maxlog)
+                want = M._demodulate_joint(yy, const, bps, v,
+                                           M._max if maxlog else M._lse)
+                bad = got.view(torch.int32) != want.view(torch.int32)
+                out["symbols"] += yy.numel()
+                out["llrs"] += got.numel()
+                out["mismatches"] += int(bad.sum())
+                if bad.any():
+                    gap = (got.view(torch.int32).long()
+                           - want.view(torch.int32).long()).abs()
+                    out["max_ulp"] = max(out["max_ulp"], int(gap.max()))
+                del got, want, bad
+    torch.cuda.synchronize()
+    print(f"K6 parity: {out['mismatches']} mismatching LLRs (bits) in "
+          f"{out['llrs']} over {out['symbols']} symbols, largest gap "
+          f"{out['max_ulp']} ulp", flush=True)
+    if out["mismatches"]:
+        fail("K6 disagrees with its plain version")
+    timing = {}
+    for name, shape, snr in (("bcc_step", (2048, 2688), 11.0),
+                             ("ldpc_step", (4096, 486), 12.0)):
+        y, nv = k6_symbols(torch, qam16, shape, snr, 700, dev)
+        n = y.numel()
+        t = {"symbols": n,
+             "ms": cuda_ms(torch, lambda: DK.demap_joint(y, qam16, nv), 20),
+             "device_ms": device_ms(torch, lambda: DK.demap_joint(
+                 y, qam16, nv), 20, "demap_joint_kernel"),
+             "maxlog_ms": cuda_ms(torch, lambda: DK.demap_joint(
+                 y, qam16, nv, True), 20),
+             "plain_ms": cuda_ms(torch, lambda: M._demodulate_joint(
+                 y, qam16, 4, nv, M._lse), 3),
+             "separable_ms": cuda_ms(torch, lambda: M.demodulate_soft(
+                 y, qam16, 4, nv, method="separable"), 5),
+             "bound": k6_bound(n, 16), "maxlog_bound": k6_bound(n, 16, True)}
+        bound, by = k3_bound_ms(*t["bound"])
+        t.update(bound_ms=bound, bound_by=by,
+                 roofline_pct=100 * bound / (t["device_ms"] or t["ms"]))
+        timing[name] = t
+        print(f"K6 {name} ({n} 16-QAM symbols): {t['ms']:.4f} ms a call, "
+              f"{ms_str(t['device_ms'])} ms of device time, bound "
+              f"{bound:.4f} ms by {by} ({t['roofline_pct']:.1f}%); max-log "
+              f"{t['maxlog_ms']:.4f} ms; plain {t['plain_ms']:.3f} ms, "
+              f"separable {t['separable_ms']:.3f} ms", flush=True)
+    out["timing"] = timing
+    report["k6"] = out
+    return out
+
+
+class K6Watch:
+    """K6's launches on each path of the script, and the plain joint
+    demapper's calls on the card: ``count(label, fn)`` runs ``fn()`` with
+    ``demap_joint.launches`` set to 0 and ``ops.modem._demodulate_joint``
+    wrapped, and keeps both counts under ``label``.  A plain call on a
+    complex64 or float32 CUDA tensor of an order K6 takes is a call that
+    K6 should have taken: any fails the script; complex128 symbols and the
+    larger orders are the plain version's and are only counted."""
+
+    def __init__(self, torch):
+        from commpy_tpu_torch.kernels import demap as DK
+        from commpy_tpu_torch.ops import modem as M
+
+        self.torch, self.DK, self.M = torch, DK, M
+        self.launches, self.plain_cuda, self.missed = {}, {}, {}
+
+    def count(self, label, fn, must=True):
+        """``fn()``; fails if it reached the plain version where K6 should
+        have run, or (``must``: a path that soft-demaps on the card)
+        launched K6 not once."""
+        torch, DK, M = self.torch, self.DK, self.M
+        plain, seen = M._demodulate_joint, [0, 0]
+
+        def watched(symbols, constellation, bits_per_symbol, *rest):
+            if symbols.is_cuda:
+                seen[0] += 1
+                seen[1] += (symbols.dtype in (torch.complex64, torch.float32)
+                            and DK.takes(len(M._const_numpy(constellation)),
+                                         bits_per_symbol))
+            return plain(symbols, constellation, bits_per_symbol, *rest)
+        DK.demap_joint.launches = 0
+        M._demodulate_joint = watched
+        try:
+            out = fn()
+        finally:
+            M._demodulate_joint = plain
+        n = DK.demap_joint.launches
+        self.launches[label], self.plain_cuda[label] = n, seen[0]
+        self.missed[label] = seen[1]
+        print(f"{label}: demap_joint launches {n}; plain joint demapper on "
+              f"the card {seen[0]} calls, {seen[1]} of them K6's to take",
+              flush=True)
+        if seen[1]:
+            fail(f"{label}: {seen[1]} joint-path calls on the card reached "
+                 f"the plain demapper")
+        if must and not n:
+            fail(f"{label} never launched demap_joint")
+        return out
 
 
 def load_other_port(root):
@@ -3156,6 +3333,10 @@ def main():
         print(f"{name}: {regs_summary(regs[name])}", flush=True)
 
     lap("build")
+    # ---- K6, the joint demapper, against its plain version; its time --
+    k6_phase(torch, report)
+
+    lap("k6")
     # ---- kernels against their plain versions ------------------------
     tallies = {"acs_forward": Tally(), "traceback": Tally()}
     k7 = Trellis(np.array([6]), np.array([[0o133, 0o171]]))
@@ -3250,13 +3431,16 @@ def main():
 
     lap("viterbi_parity")
     # ---- the main path ------------------------------------------------
+    k6w = K6Watch(torch)
     K.acs_forward.launches = 0
     K.traceback.launches = 0
-    res = montecarlo_ber(link.link_step, [12.0], link.noise_std_fn,
-                         link.frame_bits, seed=1, frames_per_round=2048,
-                         max_rounds=3, err_min=10 ** 9, device="cuda")
+    res = k6w.count("MCS-4", lambda: montecarlo_ber(
+        link.link_step, [12.0], link.noise_std_fn, link.frame_bits, seed=1,
+        frames_per_round=2048, max_rounds=3, err_min=10 ** 9,
+        device="cuda"))
     main_launches = {"acs_forward": K.acs_forward.launches,
-                     "traceback": K.traceback.launches}
+                     "traceback": K.traceback.launches,
+                     "demap_joint": k6w.launches["MCS-4"]}
     report["mcs4_12db"] = {"bit_errors": res.bit_errors.tolist(),
                            "bits_sent": res.bits_sent.tolist(),
                            "ber": res.bers.tolist(), "rounds": res.rounds}
@@ -3334,14 +3518,14 @@ def main():
     # ---- Path A: the 802.11n LDPC link ---------------------------------
     ldpc_link = wifi80211n_ldpc_link(1944, 16)
     QK.qc_bp_resident.launches = 0
-    res_a = montecarlo_ber(ldpc_link.link_step, [10.0],
-                           ldpc_link.noise_std_fn, ldpc_link.frame_bits,
-                           seed=5, frames_per_round=512, max_rounds=3,
-                           err_min=10 ** 9, device="cuda")
+    res_a = k6w.count("A", lambda: montecarlo_ber(
+        ldpc_link.link_step, [10.0], ldpc_link.noise_std_fn,
+        ldpc_link.frame_bits, seed=5, frames_per_round=512, max_rounds=3,
+        err_min=10 ** 9, device="cuda"))
     launches_a = QK.qc_bp_resident.launches
     print(f"Path A 802.11n LDPC 1944 16-QAM F=512 at 10 dB: {res_a.rounds} "
           f"steps, BER {res_a.bers[0]:.3e}; qc_bp_resident launches "
-          f"{launches_a}", flush=True)
+          f"{launches_a}, demap_joint {k6w.launches['A']}", flush=True)
     if res_a.rounds != 3 or res_a.bits_sent[0] != 3 * 512 * 972:
         fail(f"Path A ran {res_a.rounds} rounds")
     if not np.isfinite(res_a.bers).all() or not res_a.bers[0] < 0.1:
@@ -3350,7 +3534,8 @@ def main():
         fail("Path A never launched qc_bp_resident")
     report["path_a"] = {"bit_errors": res_a.bit_errors.tolist(),
                         "bits_sent": res_a.bits_sent.tolist(),
-                        "ber": res_a.bers.tolist(), "launches": launches_a}
+                        "ber": res_a.bers.tolist(), "launches": launches_a,
+                        "demap_joint_launches": k6w.launches["A"]}
     # physics through the kernels, on NumPy-made inputs
     rng = np.random.RandomState(11)
     p1944, make1944 = codes["80211n-1944-1/2"]
@@ -3548,38 +3733,44 @@ def main():
         "traceback": {"MCS-4": main_launches["traceback"]},
         "qc_bp_resident": {"A": launches_a},
         "qc_bp_streamed": {"B": launches_b},
-        "bcjr_appdiff": {"C": launches_c}}
+        "bcjr_appdiff": {"C": launches_c},
+        "demap_joint": k6w.launches}
 
     def add_launches(counts):
         for name, paths in counts.items():
             path_launches[name].update(paths)
 
     # ---- Paths D-G: MIMO detection and OFDM -----------------------------
-    add_launches(mimo_ofdm_paths(torch, report, k7))
+    add_launches(k6w.count("D-G", lambda: mimo_ofdm_paths(torch, report,
+                                                          k7)))
     auto_past_the_limits(torch, report)
 
     lap("paths_d_to_g")
     # ---- Paths H-L: single-carrier DSP and the algebraic codes -----------
-    add_launches(dsp_code_paths(torch, report, k7))
+    add_launches(k6w.count("H-L", lambda: dsp_code_paths(torch, report,
+                                                         k7)))
 
     lap("paths_h_to_l")
     # ---- Paths M-O: polar, the IDD link, the CommPy-compatible API ------
-    polar_path(torch, report)
+    k6w.count("M", lambda: polar_path(torch, report))
     lap("path_m")
-    add_launches(idd_path(torch, report))
+    add_launches(k6w.count("N", lambda: idd_path(torch, report), False))
     lap("path_n")
-    add_launches(api_path(torch, report))
+    add_launches(k6w.count("O", lambda: api_path(torch, report)))
     lap("path_o")
     # ---- Paths P-R: data, sequence and tensor parallelism (NCCL) ---------
-    add_launches(dp_path(torch, report, link, res, uncoded_2db, k7))
+    add_launches(k6w.count("P", lambda: dp_path(torch, report, link, res,
+                                                uncoded_2db, k7)))
     lap("path_p")
-    add_launches(stream_path(torch, report, k7))
+    add_launches(k6w.count("Q", lambda: stream_path(torch, report, k7),
+                           False))
     lap("path_q")
-    tp_path(torch, report, codes, ldpc_link)
+    k6w.count("R", lambda: tp_path(torch, report, codes, ldpc_link), False)
     torch.distributed.destroy_process_group()
     lap("path_r")
     # ---- the examples: every examples/torch script at its own size -------
-    add_launches(examples_path(torch, report))
+    add_launches(k6w.count("examples", lambda: examples_path(torch, report),
+                           False))
     lap("examples")
     # ---- timing -------------------------------------------------------
     timings = {}
@@ -4077,6 +4268,30 @@ def main():
         "redesigned": True,
         "shape": "T=128 R=12288 S=4 boundary, log-MAP f32 (Path C: L=6144, "
                  "F=256, NII (128, 0))"}, **extra))
+    k6 = report["k6"]
+    t6, t6l = k6["timing"]["bcc_step"], k6["timing"]["ldpc_step"]
+    kernels.append({
+        "name": "demap_joint", "route": "cuda", "source": DEMAP_SOURCE,
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the JAX package leaves the "
+        "demapper to XLA (commpy_tpu/ops/modem.py:258-259)",
+        "launches": sum(path_launches["demap_joint"].values()),
+        "path_launches": path_launches["demap_joint"],
+        "plain_joint_cuda_calls": k6w.plain_cuda,
+        "mismatches": k6["mismatches"], "compared": k6["llrs"],
+        "symbols_compared": k6["symbols"], "max_ulp": k6["max_ulp"],
+        "ms": t6["ms"], "kernel_ms": t6["ms"], "device_ms": t6["device_ms"],
+        "ms_note": MS_NOTE, "plain_ms": t6["plain_ms"],
+        "separable_ms": t6["separable_ms"], "maxlog_ms": t6["maxlog_ms"],
+        "bound_ms": t6["bound_ms"], "bound_by": t6["bound_by"],
+        "library_ms": None, "redesigned": True,
+        "shape": "16-QAM, 2048 x 2688 symbols (a step of mcs4-bcc)",
+        "second_ms": t6l["ms"], "second_device_ms": t6l["device_ms"],
+        "second_plain_ms": t6l["plain_ms"],
+        "second_separable_ms": t6l["separable_ms"],
+        "second_bound_ms": t6l["bound_ms"],
+        "second_shape": "16-QAM, 4096 x 486 symbols (a step of the LDPC "
+                        "cells)"})
     report["kernels"] = kernels
     lap("timing")
     if "--ab" in sys.argv:

@@ -11,7 +11,11 @@ Counterpart of ``commpy_tpu/ops/modem.py``:
   the constellation, and ``demodulate_maxlog`` its max-log approximation.
   For a Gray square QAM of order >= 64 (``method='auto'``), both take the
   per-axis factorised form: each bit depends on one axis only, so the
-  other axis' term cancels.
+  other axis' term cancels.  On the card the joint form runs as one
+  hand-written kernel, K6 (``kernels/demap.py``), for complex64 symbols
+  and orders up to 64; ``_demodulate_joint``, its plain version, serves
+  CPU tensors, complex128 symbols and the larger orders
+  (:func:`demap_route`).
 
 Constellations may be NumPy arrays or tensors; they are used as complex64
 on the device of the symbols, as the JAX package uses them in f32.
@@ -23,6 +27,7 @@ import functools
 import numpy as np
 import torch
 
+from ..kernels import demap
 from ..utils.bits import pack_bits, unpack_bits
 from ..utils.device import device_constant, on_device
 
@@ -153,19 +158,31 @@ def _separable_qam_plan(const_np: np.ndarray, bps: int):
     return _separable_plan_cached(const_np.tobytes(), len(const_np), bps)
 
 
-def _resolve_separable(constellation, bits_per_symbol, method,
-                       auto_min_order=64):
-    """The separable plan to use, or None for the joint path."""
+def demap_route(m: int, bits_per_symbol: int, method: str, device_type: str,
+                dtype: torch.dtype, grid: bool) -> str:
+    """Which demapper takes ``m`` points on symbols of ``dtype`` on a
+    ``device_type`` device.
+
+    ``'separable'``: the per-axis form, where ``method`` asks for it
+    (``'separable'``, or ``'auto'`` at an order of at least 64) and the
+    constellation is a product grid that factorises (``grid``: its
+    :func:`_separable_qam_plan` is not None).  Else the joint path:
+    ``'kernel'``, K6 (:func:`~commpy_tpu_torch.kernels.demap.demap_joint`),
+    for complex64 or real float32 symbols (exact as complex64) on a CUDA
+    device and the orders K6 takes (m = 2 to 64, ``bits_per_symbol ==
+    log2(m)``); ``'plain'``, :func:`_demodulate_joint`, for the rest, so
+    complex128 symbols keep their float64 distances.
+    """
     if method not in ("auto", "separable", "joint"):
         raise ValueError(
             f"method must be 'auto', 'separable', or 'joint', got "
             f"{method!r}")
-    if method == "joint":
-        return None
-    const_np = _const_numpy(constellation)
-    if method == "auto" and len(const_np) < auto_min_order:
-        return None
-    return _separable_qam_plan(const_np, bits_per_symbol)
+    if grid and (method == "separable" or (method == "auto" and m >= 64)):
+        return "separable"
+    if (device_type == "cuda" and dtype in (torch.complex64, torch.float32)
+            and demap.takes(m, bits_per_symbol)):
+        return "kernel"
+    return "plain"
 
 
 def _noise_var_tensor(noise_var, like: torch.Tensor) -> torch.Tensor:
@@ -212,6 +229,8 @@ def _max(x):
 
 def _demodulate_joint(symbols, constellation, bits_per_symbol, noise_var,
                       reduce):
+    """The joint demapper in plain PyTorch: ``reduce`` (logsumexp or
+    amax) over the masked log-weights; K6's plain version."""
     m = len(_const_numpy(constellation))
     masks = device_constant(constellation_bit_masks(m, bits_per_symbol),
                             symbols.device)  # [bps, m]
@@ -224,6 +243,25 @@ def _demodulate_joint(symbols, constellation, bits_per_symbol, noise_var,
     return llr.reshape(llr.shape[:-2] + (-1,))
 
 
+def _demodulate(symbols, constellation, bits_per_symbol, noise_var, method,
+                maxlog):
+    const_np = _const_numpy(constellation)
+    m = len(const_np)
+    plan = None
+    if method == "separable" or (method == "auto" and m >= 64):
+        plan = _separable_qam_plan(const_np, bits_per_symbol)
+    reduce = _max if maxlog else _lse
+    route = demap_route(m, bits_per_symbol, method, symbols.device.type,
+                        symbols.dtype, plan is not None)
+    if route == "separable":
+        return _demodulate_soft_separable(symbols, plan, noise_var, reduce)
+    if route == "kernel":
+        return demap.demap_joint(symbols.to(torch.complex64), const_np,
+                                 noise_var, maxlog)
+    return _demodulate_joint(symbols, constellation, bits_per_symbol,
+                             noise_var, reduce)
+
+
 def demodulate_soft(symbols: torch.Tensor, constellation,
                     bits_per_symbol: int, noise_var, method: str = "auto"):
     """Exact-LLR soft demapping (positive LLR -> bit 1), float32
@@ -231,21 +269,16 @@ def demodulate_soft(symbols: torch.Tensor, constellation,
 
     ``method='auto'`` takes the per-axis factorised form for a separable
     product-grid constellation of order >= 64; ``'separable'`` forces it,
-    ``'joint'`` forces the generic path.
+    ``'joint'`` forces the generic path, which on the card is K6 for
+    complex64 symbols and orders up to 64 (:func:`demap_route`).
     """
-    plan = _resolve_separable(constellation, bits_per_symbol, method)
-    if plan is not None:
-        return _demodulate_soft_separable(symbols, plan, noise_var, _lse)
-    return _demodulate_joint(symbols, constellation, bits_per_symbol,
-                             noise_var, _lse)
+    return _demodulate(symbols, constellation, bits_per_symbol, noise_var,
+                       method, maxlog=False)
 
 
 def demodulate_maxlog(symbols: torch.Tensor, constellation,
                       bits_per_symbol: int, noise_var, method: str = "auto"):
     """Max-log LLR soft demapping, same ``method`` semantics as
     :func:`demodulate_soft`."""
-    plan = _resolve_separable(constellation, bits_per_symbol, method)
-    if plan is not None:
-        return _demodulate_soft_separable(symbols, plan, noise_var, _max)
-    return _demodulate_joint(symbols, constellation, bits_per_symbol,
-                             noise_var, _max)
+    return _demodulate(symbols, constellation, bits_per_symbol, noise_var,
+                       method, maxlog=True)

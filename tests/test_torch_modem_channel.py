@@ -97,6 +97,96 @@ def test_demapper_rejects_unknown_method():
                            4, 1.0, method="fast")
 
 
+# demap_route: (m, bits_per_symbol, method, device_type, dtype, grid) ->
+# route, for complex64 symbols here.  K6 takes every joint-path order from
+# 2 to 64 on the card; the CPU and the larger orders keep the plain
+# version; the per-axis form is untouched.
+@pytest.mark.parametrize("m,bps,method,dev,grid,want", [
+    *[(m, int(np.log2(m)), method, "cuda", grid, "kernel")
+      for m in (2, 4, 8, 16, 32) for method in ("auto", "joint")
+      for grid in (True, False)],
+    (64, 6, "joint", "cuda", True, "kernel"),
+    (64, 6, "auto", "cuda", False, "kernel"),  # 64-PSK: no product grid
+    (16, 4, "separable", "cuda", False, "kernel"),  # 16-PSK forced
+    *[(m, int(np.log2(m)), method, "cpu", grid, "plain")
+      for m in (2, 4, 8, 16, 32) for method in ("auto", "joint")
+      for grid in (True, False)],
+    (64, 6, "joint", "cpu", True, "plain"),
+    (128, 7, "joint", "cuda", True, "plain"),
+    (256, 8, "auto", "cuda", False, "plain"),  # 256-PSK
+    (16, 2, "joint", "cuda", True, "plain"),  # bits_per_symbol != log2(m)
+    (12, 4, "joint", "cuda", False, "plain"),
+    *[(m, int(np.log2(m)), "auto", dev, True, "separable")
+      for m in (64, 256, 1024) for dev in ("cuda", "cpu")],
+    *[(m, int(np.log2(m)), "separable", dev, True, "separable")
+      for m in (4, 16, 64, 256) for dev in ("cuda", "cpu")],
+])
+def test_demap_route(m, bps, method, dev, grid, want):
+    assert PM.demap_route(m, bps, method, dev, torch.complex64,
+                          grid) == want
+
+
+@pytest.mark.parametrize("dtype,want", [
+    (torch.complex64, "kernel"), (torch.float32, "kernel"),
+    (torch.complex128, "plain"), (torch.float64, "plain")])
+@pytest.mark.parametrize("m", [2, 16, 64])
+def test_demap_route_by_dtype(m, dtype, want):
+    """K6 takes the symbols whose cast to complex64 is exact; complex128
+    (or float64) symbols keep the plain version's float64 distances; the
+    per-axis form does not look at the dtype."""
+    bps = int(np.log2(m))
+    assert PM.demap_route(m, bps, "joint", "cuda", dtype, True) == want
+    assert PM.demap_route(m, bps, "joint", "cpu", dtype, True) == "plain"
+    assert PM.demap_route(m, bps, "separable", "cuda", dtype,
+                          True) == "separable"
+
+
+def test_demap_route_rejects_unknown_method():
+    with pytest.raises(ValueError, match="method"):
+        PM.demap_route(16, 4, "fast", "cuda", torch.complex64, True)
+
+
+@pytest.mark.parametrize("kind,m,method", [
+    ("psk", 2, "auto"), ("qam", 4, "auto"), ("psk", 8, "auto"),
+    ("qam", 16, "auto"), ("psk", 32, "joint"), ("qam", 64, "joint"),
+    ("psk", 64, "auto")])
+@pytest.mark.parametrize("maxlog", [False, True])
+def test_cpu_joint_path_is_the_plain_version(kind, m, method, maxlog):
+    """On the CPU the joint path is ``_demodulate_joint`` itself, K6 is
+    never launched, and scalar, one-element and per-symbol noise
+    variances give the plain version's values."""
+    from commpy_tpu_torch.kernels import demap
+
+    const = _const(kind, m, PM).astype(np.complex64)
+    bps = int(np.log2(m))
+    y = torch.as_tensor(_symbols(const, 3, 21, 0.4, seed=m))
+    fn = PM.demodulate_maxlog if maxlog else PM.demodulate_soft
+    reduce = PM._max if maxlog else PM._lse
+    before = demap.demap_joint.launches
+    for nv in (np.float32(0.35), 0.35, torch.tensor([0.35]),
+               torch.linspace(0.1, 1.0, 63).reshape(3, 21)):
+        got = fn(y, const, bps, nv, method=method)
+        want = PM._demodulate_joint(y, const, bps, nv, reduce)
+        assert got.shape == (3, 21 * bps) and torch.equal(got, want)
+    assert demap.demap_joint.launches == before == 0
+
+
+def test_demap_joint_refuses_what_k6_does_not_take():
+    from commpy_tpu_torch.kernels import demap
+
+    const = PM.qam_constellation(16)
+    y = torch.zeros(2, 3, dtype=torch.complex64)
+    with pytest.raises(ValueError, match="CUDA"):
+        demap.demap_joint(y, const, 1.0)
+    for bad in (y.to(torch.complex128), torch.zeros(2, 3)):
+        with pytest.raises(ValueError, match="complex64"):
+            demap.demap_joint(bad, const, 1.0)
+    assert demap.takes(16, 4) and demap.takes(2, 1) and demap.takes(64, 6)
+    assert not (demap.takes(128, 7) or demap.takes(16, 2)
+                or demap.takes(12, 4))
+    assert demap.demap_joint.launches == 0
+
+
 @pytest.mark.parametrize("rate,Es,cplx", [(1.0, 1.0, True), (0.75, 10.0,
                                                              True),
                                           (0.5, 1.0, False)])

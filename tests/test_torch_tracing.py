@@ -6,10 +6,11 @@ records and a shared no-op otherwise; ``recording()`` reads a private
 torch flag, which these tests pin.  ``qc_bp_resident`` counts the sweeps
 and frames it decodes while a profiler records; on the CPU its plain
 version counts, held here to a count made from the code's checks
-directly.  The card test (marked ``card``, skipping without one) holds
-the kernel's count to the plain version's; this file imports no JAX, so
-on the card it runs as ``python -m pytest tests/test_torch_tracing.py
---noconftest -m card``.
+directly.  The card tests (marked ``card``, skipping without one) hold
+K4's count to the plain version's, and K6, the joint demapper, to its
+plain version bit for bit with its launch counter rising by one a call;
+this file imports no JAX, so on the card it runs as ``python -m pytest
+tests/test_torch_tracing.py --noconftest -m card``.
 """
 import json
 
@@ -18,8 +19,10 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from commpy_tpu_torch.kernels import demap as D
 from commpy_tpu_torch.kernels import qc_bp as K
 from commpy_tpu_torch.models.device_links import make_qcldpc_awgn_link
+from commpy_tpu_torch.ops import modem as PM
 from commpy_tpu_torch.ops import qcldpc as PQ
 from commpy_tpu_torch.parallel.montecarlo import montecarlo_ber
 from commpy_tpu_torch.utils import profiling
@@ -184,3 +187,108 @@ def test_k4_counter_kernel_equals_plain_on_the_card(counters, schedule):
     assert torch.equal(dec, want)
     assert kernel == (int(counters.sweeps), counters.frames)
     assert kernel[1] == 512 and 0 < kernel[0] < 512 * N_ITERS
+
+
+# ---- K6, the joint demapper, against its plain version on the card ----
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+def _demap_case(kind, m, shape, scale, seed, dev):
+    const = (PM.psk_constellation(m) if kind == "psk"
+             else PM.qam_constellation(m)).astype(np.complex64)
+    rng = np.random.RandomState(seed)
+    noise = rng.randn(*shape) + 1j * rng.randn(*shape)
+    y = const[rng.randint(0, m, shape)] + noise * scale
+    return const, torch.as_tensor(y.astype(np.complex64), device=dev)
+
+
+def _k6_and_plain(y, const, nv, maxlog):
+    """K6's LLRs (through the public demapper, counted) and the plain
+    version's on the same device."""
+    bps = int(np.log2(len(const)))
+    fn = PM.demodulate_maxlog if maxlog else PM.demodulate_soft
+    before = D.demap_joint.launches
+    got = fn(y, const, bps, nv, method="joint")
+    launched = D.demap_joint.launches - before
+    want = PM._demodulate_joint(y, const, bps, nv,
+                                PM._max if maxlog else PM._lse)
+    return got, want, launched
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kind,m", [("psk", 2), ("qam", 4), ("psk", 8),
+                                    ("qam", 16), ("qam", 64)])
+@pytest.mark.parametrize("maxlog", [False, True])
+@pytest.mark.parametrize("nv_form", ["scalar", "0-d", "one", "per_symbol"])
+def test_k6_equals_the_plain_version_on_the_card(kind, m, maxlog, nv_form):
+    dev = _card()
+    const, y = _demap_case(kind, m, (64, 999), 0.4, m, dev)
+    nv = {"scalar": np.float32(0.3),
+          "0-d": torch.tensor(0.3, device=dev),
+          "one": torch.tensor([0.3], device=dev),
+          "per_symbol": torch.rand(y.shape, device=dev) * 2 + 1e-3}[nv_form]
+    got, want, launched = _k6_and_plain(y, const, nv, maxlog)
+    assert launched == 1 and got.shape == (64, 999 * int(np.log2(m)))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("maxlog", [False, True])
+def test_k6_layouts_on_the_card(maxlog):
+    """Leading axes, a non-contiguous input; an empty input gives an empty
+    output without a launch (the plain version cannot reshape one)."""
+    dev = _card()
+    const, y = _demap_case("qam", 16, (2, 3, 5, 41), 0.5, 7, dev)
+    got, want, launched = _k6_and_plain(y, const, 0.25, maxlog)
+    assert launched == 1 and got.shape == (2, 3, 5, 164)
+    assert torch.equal(got, want)
+    strided = y.transpose(1, 3)[..., ::2]
+    assert not strided.is_contiguous()
+    got, want, launched = _k6_and_plain(strided, const, 0.25, maxlog)
+    assert launched == 1 and torch.equal(got, want)
+    before = D.demap_joint.launches
+    for empty, shape in ((y[:0], (0, 3, 5, 164)), (y[..., :0], (2, 3, 5, 0))):
+        got = PM.demodulate_soft(empty, const, 4, 0.25, method="joint")
+        assert got.shape == shape and got.dtype == torch.float32
+    assert D.demap_joint.launches == before
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kind,m", [("qam", 4), ("psk", 8), ("qam", 16),
+                                    ("qam", 64)])
+@pytest.mark.parametrize("maxlog", [False, True])
+def test_k6_far_out_symbols_on_the_card(kind, m, maxlog):
+    """Symbols far off the constellation with a small noise variance:
+    every exp of a point but the nearest underflows; log-weights reach
+    ~-1e22."""
+    dev = _card()
+    const, y = _demap_case(kind, m, (8, 500), 0.1, 11 + m, dev)
+    far = torch.as_tensor(
+        np.random.RandomState(m).choice([1e1, 1e3, 1e5, 1e7], y.shape),
+        dtype=torch.float32, device=dev)
+    for nv in (np.float32(1e-3), np.float32(1e-6)):
+        got, want, launched = _k6_and_plain(y * far, const, nv, maxlog)
+        assert launched == 1 and torch.isfinite(want).all()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("maxlog", [False, True])
+def test_k6_leaves_complex128_to_the_plain_version_on_the_card(maxlog):
+    """complex128 symbols keep the plain version's float64 distances (the
+    CommPy-compatible ``Modem.demodulate`` passes NumPy complex128):
+    no launch, the plain version's values; real float32 symbols take K6
+    as complex64, bit for bit."""
+    dev = _card()
+    const, y = _demap_case("qam", 16, (4, 300), 0.4, 5, dev)
+    y128 = y.to(torch.complex128) + 1e-9j
+    got, want, launched = _k6_and_plain(y128, const, 0.3, maxlog)
+    assert launched == 0 and torch.equal(got, want)
+    const, y = _demap_case("psk", 2, (4, 300), 0.4, 6, dev)
+    got, want, launched = _k6_and_plain(y.real.contiguous(), const, 0.3,
+                                        maxlog)
+    assert launched == 1 and torch.equal(got, want)
