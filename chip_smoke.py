@@ -56,17 +56,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
    BG1 Z=208 code, layered 8, B=512, float32 and bfloat16 stores:
    noiseless input decodes to itself, noisy input beats the channel's
    hard decisions, K5's launch counter rises;
-8. holds the BCJR kernel K3 against its plain version, bit for bit (a
-   log-MAP value may differ only within the fallback limit of
-   ``K3Tally``): RSC codes of S = 2, 4, 8 and 16 states and a relabelled
-   8-state code, log-MAP, max-log and linear, the plain, masked and
-   boundary variants, f32 and bf16 io, combined and posterior on and off,
-   T = 1, 2 and 3, odd T and R not a multiple of 32 (the plain version
-   also on the host CPU for max-log and linear), both history placements
-   (shared and device memory) where they fit, S = 16 at T = 320 (device
-   memory), and the three bench shapes; and with ``renorm_every`` 1, 2
-   and 4 (S = 2 to 16, masked and boundary, T = 1, 3 and 33, both history
-   placements), every value bit for bit, log-MAP included;
+8. holds the BCJR kernel K3 against its plain version, every value bit
+   for bit, log-MAP included, in both of its forms (the state form, and
+   the lane form forced wherever it takes the trellis: all but the
+   relabelled code), counted by form in ``K3Tally``: RSC codes of S = 2,
+   4, 8 and 16 states and a relabelled 8-state code, log-MAP, max-log
+   and linear, the plain, masked and boundary variants, f32 and bf16 io,
+   combined and posterior on and off, T = 1, 2 and 3, odd T and R not a
+   multiple of 32 (the plain version also on the host CPU for max-log
+   and linear), both history placements (shared and device memory) where
+   they fit, S = 16 at T = 320 (device memory), the three bench shapes
+   and the LTE cell's pass (T = 128, R = 49,152, S = 8, boundary,
+   log-MAP); and with ``renorm_every`` 1, 2 and 4 (S = 2 to 16, masked
+   and boundary, T = 1, 3 and 33, both history placements);
 9. Path C: the rate-1/3 turbo link (LTE's L=6144, 4-state RSC,
    ``RandInterlv(6144, 0)``, 8 iterations, NII windows (128, 0)) at F=256
    frames per step at Eb/N0 1.0 dB through ``montecarlo_ber``, with K3's
@@ -79,7 +81,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    Then Path LTE: ``make_lte_turbo_link`` (LTE's K=6144 turbo code
    block: QPP, 8-state terminated PCCC, 16-QAM, 8 log-MAP iterations on
    NII windows (128, 0) ended by the tails' betas) at F=1024 at 8.55 dB
-   through ``montecarlo_ber``, K3's launches 18 a step and K6's one, BER
+   through ``montecarlo_ber``, K3's launches 18 a step (the 16 passes in
+   the lane form, ``bcjr_appdiff.lane_launches``) and K6's one, BER
    under 1e-2, ``errs(35 dB) == 0 < errs(5 dB)``; every K3 call of one
    step (16 passes at T=128, R=49152, S=8 and two tail betas at T=3,
    R=1024) held to its plain version on its own inputs, and both shapes
@@ -96,7 +99,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    1, 2 and 3 frames
    per SM and after 0, 1 and 2 sweeps, and on NR BG1 Z=384, held to its
    plain version there, at the plan's grid and at one whose stores fit
-   the L2; K3 with each history placement), Path B's noisy
+   the L2; K3 with each history placement, and in both forms with each
+   placement that fits at the LTE pass, the three bench shapes and the
+   turbo stream's R = 1 pass, beside its bound), Path B's noisy
    decodes end to end (info bits/s, K5's sweeps, its time and bound),
    the turbo decoder at the JAX bench's configurations, and the Path A
    and Path C link steps, with their profiles.
@@ -302,7 +307,7 @@ def ms_str(ms, digits=4):
 
 KERNEL_NAMES = ("acs_warp_kernel", "acs_forward_kernel", "traceback_kernel",
                 "qc_bp_resident_kernel", "qc_bp_streamed_kernel",
-                "bcjr_kernel", "demap_joint_kernel")
+                "bcjr_kernel_lanes", "bcjr_kernel", "demap_joint_kernel")
 
 
 def ptxas_report(paths):
@@ -946,13 +951,14 @@ def rsc_trellises():
 
 
 class K3Tally:
-    """Kernel-versus-plain comparison counts of K3.
+    """Kernel-versus-plain comparison counts of K3, in all and by form.
 
     Every output value (e, and the carries of the boundary variant) is
     compared bit for bit.  Max-log and linear values that differ are
     mismatches.  A log-MAP value that differs is a last-bit difference
     (``bit_diffs``), and a mismatch only past the fallback limit: another
-    decision (sign) or ``|kernel - plain| > 1e-5 (1 + |plain|)``."""
+    decision (sign) or ``|kernel - plain| > 1e-5 (1 + |plain|)``.
+    ``forms`` holds the counts of each form that ``add`` was told of."""
 
     def __init__(self):
         self.cases = 0
@@ -961,9 +967,18 @@ class K3Tally:
         self.bit_diffs = 0
         self.max_abs_err = 0.0
         self.max_rel_err = 0.0
+        self.forms = {}
 
-    def add(self, got, want, exact):
+    def by_form(self):
+        """``"lane: 0 mismatches, 0 differing bits in 12 cases, ...; ..."``"""
+        return "; ".join(
+            f"{f}: {c['mismatches']} mismatches, {c['bit_diffs']} differing "
+            f"bits in {c['cases']} cases, {c['compared']} values"
+            for f, c in sorted(self.forms.items()))
+
+    def add(self, got, want, exact, form=None):
         bad = 0
+        before = (self.compared, self.bit_diffs)
         for g, w in zip(got, want):
             w = w.to(g.device)
             if g.shape != w.shape or g.dtype != w.dtype:
@@ -982,6 +997,13 @@ class K3Tally:
                                        float((diff / (1 + w.abs())).max()))
         self.cases += 1
         self.mismatches += bad
+        if form is not None:
+            c = self.forms.setdefault(form, dict.fromkeys(
+                ("cases", "compared", "mismatches", "bit_diffs"), 0))
+            c["cases"] += 1
+            c["compared"] += self.compared - before[0]
+            c["mismatches"] += bad
+            c["bit_diffs"] += self.bit_diffs - before[1]
         return bad
 
 
@@ -1008,27 +1030,38 @@ def k3_inputs(torch, S, T, R, variant, seed, dev, halo=4):
     return syn, pan, li, kw
 
 
-def k3_call(torch, syn, pan, li, trellis, hist=None, **kw):
-    """K3 on CUDA inputs by its own launch plan, or with the history
-    placed as ``hist`` says ("shared" or "global")."""
+def k3_call(torch, syn, pan, li, trellis, hist=None, form=None, **kw):
+    """K3 on CUDA inputs by its own launch plan, or in the form ``form``
+    says ("lane" or "state") and with the history placed as ``hist`` says
+    ("shared" or "global"), each left to the plan where None."""
     from commpy_tpu_torch.kernels import bcjr as BK
 
-    if hist is None:
+    if hist is None and form is None:
         return BK.bcjr_appdiff(syn, pan, li, trellis, **kw)
     args = dict(max_log=False, valid=None, first=None, io_dtype="f32",
                 boundary=None, lse=None, combined=False, renorm_every=0)
     args.update({k: v for k, v in kw.items() if k in args})
     mode, _, *streams = BK._prepare(syn, pan, li, trellis, *args.values())
     T, R = syn.shape
-    plan = BK.bcjr_plan(T, trellis.number_states, R, hist=hist)
+    plan = BK.bcjr_plan(T, trellis.number_states, R, hist=hist, form=form,
+                        shift=BK._lane_bits(trellis) is not None)
     return BK._bcjr_launch(trellis, mode, *streams, li, args["boundary"],
                            kw.get("posterior", False), plan,
                            args["renorm_every"])
 
 
+def k3_forms(trellis):
+    """The forms K3 takes ``trellis`` in: the state form, and the lane form
+    where the state maps are the shift register's."""
+    from commpy_tpu_torch.kernels import bcjr as BK
+
+    return ("state", "lane") if BK._lane_bits(trellis) else ("state",)
+
+
 def k3_compare(torch, tally, trellis, S, T, R, mode, variant, io, combined,
                posterior, seed, on_cpu, hists=(None,), renorm_every=0):
-    """K3 (by its own plan, or with each history placement of ``hists``)
+    """K3 in each form that takes ``trellis`` (``k3_forms``), with the
+    history where the plan puts it or with each placement of ``hists``,
     and its plain version on the card (and, for max-log and linear when
     ``on_cpu``, the plain version on the host) on the same inputs."""
     from commpy_tpu_torch.kernels import bcjr as BK
@@ -1042,11 +1075,12 @@ def k3_compare(torch, tally, trellis, S, T, R, mode, variant, io, combined,
     want = BK.bcjr_appdiff_plain(syn, pan, li, trellis, **kw)
     want = want if isinstance(want, tuple) else (want,)
     bad = 0
-    for hist in hists:
-        got = k3_call(torch, syn, pan, li, trellis, hist, **kw)
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        bad += tally.add(got, want, mode == "exact")
+    for form in k3_forms(trellis):
+        for hist in hists:
+            got = k3_call(torch, syn, pan, li, trellis, hist, form, **kw)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            bad += tally.add(got, want, mode == "exact", form)
     if on_cpu and mode != "exact":
         cpu = k3_inputs(torch, S, T, R, variant, seed, torch.device("cpu"))
         want_c = BK.bcjr_appdiff_plain(*cpu[:3], trellis,
@@ -1057,7 +1091,7 @@ def k3_compare(torch, tally, trellis, S, T, R, mode, variant, io, combined,
         fail(f"bcjr_appdiff disagrees with its plain version: {bad} values "
              f"at S={S}, T={T}, R={R}, {mode}, {variant}, io={io}, "
              f"combined={combined}, posterior={posterior}, hist={hists}, "
-             f"renorm_every={renorm_every}")
+             f"forms={k3_forms(trellis)}, renorm_every={renorm_every}")
 
 
 K3_BENCH = {  # (T, R, variant) of the three JAX bench decoders' K3 calls
@@ -1068,14 +1102,17 @@ K3_BENCH = {  # (T, R, variant) of the three JAX bench decoders' K3 calls
 
 
 def k3_parity(torch, tally, trellises):
-    """K3 against its plain version: every trellis of ``rsc_trellises``
-    under the three lse2 modes and the three variants, f32 and bf16 io,
-    combined and posterior on and off, at small shapes (T = 1, odd T, R
-    not a multiple of 32); T = 1, 2 and 3 in every mode and variant;
-    both history placements at a small shape for every S and at the
-    three bench shapes where shared memory holds them; and S = 16 at
-    T = 320, which the plan sends to device memory."""
+    """K3 against its plain version, in both forms wherever the lane form
+    takes the trellis (all but the relabelled code): every trellis of
+    ``rsc_trellises`` under the three lse2 modes and the three variants,
+    f32 and bf16 io, combined and posterior on and off, at small shapes
+    (T = 1, odd T, R not a multiple of 32); T = 1, 2 and 3 in every mode
+    and variant; both history placements at a small shape for every S and
+    at the three bench shapes where shared memory holds them; S = 16 at
+    T = 320, which the plan sends to device memory; and the LTE cell's
+    pass (T = 128, R = 49,152, S = 8, boundary, log-MAP)."""
     from commpy_tpu_torch.kernels import bcjr as BK
+    from commpy_tpu_torch.ops.turbo import lte_trellis
 
     shapes = [(1, 37), (7, 100), (33, 130), (64, 32)]
     ios = [("f32", False, False), ("bf16", True, False), ("f32", True, True),
@@ -1126,6 +1163,9 @@ def k3_parity(torch, tally, trellises):
         seed += 1
         k3_compare(torch, tally, trellises[3][1], 16, 320, 96, mode,
                    "masked", "f32", True, True, seed, False)
+    T, R = LTE_K3["pass"]
+    k3_compare(torch, tally, lte_trellis(), 8, T, R, "exact", "boundary",
+               "f32", True, True, seed + 1, False, (None, "global"))
 
 
 def k3_renorm_parity(torch, tally, trellises):
@@ -1147,6 +1187,55 @@ def k3_renorm_parity(torch, tally, trellises):
                     k3_compare(torch, tally, tr, S, T, 45, modes[seed % 3],
                                variant, io, comb, post, seed, False,
                                ("shared", "global"), renorm_every=N)
+
+
+K3_FORM_SHAPES = {  # (T, R, S, variant, renorm_every) timed in both forms
+    "lte_pass": (128, 48 * 1024, 8, "boundary", 0),  # the LTE cell's pass
+    "whole_frame": (256, 4096, 4, "plain", 0),  # the bench shapes
+    "warmup_window": (320, 6144, 4, "masked", 0),
+    "nii": (128, 12288, 4, "boundary", 0),
+    "stream": (6144, 1, 4, "masked", 1),  # the turbo stream's pass
+}
+
+
+def k3_form_timings(torch, trellises):
+    """K3's device time in both forms, with each history placement that
+    fits, at ``K3_FORM_SHAPES`` (LTE's code at the LTE pass, the 4-state
+    code elsewhere), log-MAP as the decoders call it (combined w-streams,
+    posterior out), beside its bound and the plan's choice."""
+    from commpy_tpu_torch.kernels import bcjr as BK
+    from commpy_tpu_torch.ops.turbo import lte_trellis
+
+    dev = torch.device("cuda")
+    out = {}
+    for key, (T, R, S, variant, N) in K3_FORM_SHAPES.items():
+        tr = lte_trellis() if S == 8 else trellises[1][1]
+        syn, pan, li, vkw = k3_inputs(torch, S, T, R, variant, 5200, dev,
+                                      halo=32)
+        kw = dict(vkw, combined=True, posterior=True, renorm_every=N)
+        plan = BK.bcjr_plan(T, S, R)
+        rec = out[key] = {"T": T, "R": R, "S": S, "variant": variant,
+                          "renorm_every": N,
+                          "plan": f"{plan['form']}/{plan['hist']}"}
+        rec["bound_ms"], rec["bound_by"] = k3_bound_ms(*k3_bound(
+            T, R, S, "exact", variant, renorm_every=N)[:3])
+        for form in ("state", "lane"):
+            for hist in ("shared", "global"):
+                try:
+                    BK.bcjr_plan(T, S, R, hist=hist, form=form)
+                except ValueError:
+                    rec[f"{form}/{hist}"] = "does not fit"
+                    continue
+                rec[f"{form}/{hist}"] = device_ms(torch, lambda: k3_call(
+                    torch, syn, pan, li, tr, hist, form, **kw), 5,
+                    "bcjr_kernel")
+        print(f"K3 forms at {key} ({T}, {R}, S={S}, {variant}, "
+              f"renorm_every={N}), device ms: "
+              + ", ".join(f"{k} {ms_str(v) if not isinstance(v, str) else v}"
+                          for k, v in rec.items() if "/" in k)
+              + f"; the plan takes {rec['plan']}; bound "
+              f"{rec['bound_ms']:.4g} ms by {rec['bound_by']}", flush=True)
+    return out
 
 
 def k3_bound(T, R, S, mode, variant, io_bytes=4, renorm_every=0):
@@ -3301,20 +3390,23 @@ def lte_path(torch, report, tally):
     link = make_lte_turbo_link(device="cuda")
     trl = link.extras["trellis"]
     F, snr = 1024, 8.55
-    BK.bcjr_appdiff.launches = 0
+    BK.bcjr_appdiff.launches = BK.bcjr_appdiff.lane_launches = 0
     res = mc(link, [snr], 18, F, 2)
     n_k3, n_k6 = BK.bcjr_appdiff.launches, DK.demap_joint.launches
+    n_lane = BK.bcjr_appdiff.lane_launches
     e35 = step_errors(torch, link, 64, 35.0, 19)
     e5 = step_errors(torch, link, 64, 5.0, 20)
     print(f"Path LTE turbo K=6144 16-QAM F={F} at {snr} dB: {res.rounds} "
           f"steps, BER {res.bers[0]:.3e} ({res.bit_errors[0]:.0f} errors); "
-          f"bcjr_appdiff launches {n_k3}, demap_joint {n_k6}; errors "
-          f"{e35} at 35 dB, {e5} at 5 dB", flush=True)
+          f"bcjr_appdiff launches {n_k3} ({n_lane} in the lane form), "
+          f"demap_joint {n_k6}; errors {e35} at 35 dB, {e5} at 5 dB",
+          flush=True)
     if res.rounds != 2 or res.bits_sent[0] != 2 * F * 6144:
         fail(f"Path LTE ran {res.rounds} rounds")
-    if n_k3 != 18 * 2 or n_k6 != 2:
-        fail(f"Path LTE launched bcjr_appdiff {n_k3} and demap_joint {n_k6} "
-             f"times in 2 steps, not 18 and 1 a step")
+    if n_k3 != 18 * 2 or n_lane != 16 * 2 or n_k6 != 2:
+        fail(f"Path LTE launched bcjr_appdiff {n_k3} ({n_lane} in the lane "
+             f"form) and demap_joint {n_k6} times in 2 steps, not 18 (the 16 "
+             f"passes in the lane form) and 1 a step")
     if not np.isfinite(res.bers).all() or not res.bers[0] < 1e-2:
         fail(f"Path LTE BER at {snr} dB is {res.bers[0]}")
     if not e35 == 0 < e5:
@@ -3334,7 +3426,8 @@ def lte_path(torch, report, tally):
         want = BK.bcjr_appdiff_plain(*a, **kw)
         tally.add(got if isinstance(got, tuple) else (got,),
                   want if isinstance(want, tuple) else (want,),
-                  not kw.get("max_log", False))
+                  not kw.get("max_log", False),
+                  BK.bcjr_plan(key[0], 8, key[1])["form"])
     own = {"calls": len(calls), "shapes": {str(k): v for k, v in
                                            shapes.items()},
            "mismatches": tally.mismatches - before[0],
@@ -3365,12 +3458,14 @@ def lte_path(torch, report, tally):
               syn, pan, li, trl, **kw), 5, "bcjr_kernel"),
           "plain_ms": cuda_ms(torch, lambda: BK.bcjr_appdiff_plain(
               syn, pan, li, trl, **kw), 1, warmup=0),
-          "plan_hist": BK.bcjr_plan(T, 8, R)["hist"]}
+          "plan_hist": BK.bcjr_plan(T, 8, R)["hist"],
+          "plan_form": BK.bcjr_plan(T, 8, R)["form"]}
     k3["bound_ms"], k3["bound_by"] = k3_bound_ms(
         *k3_bound(T, R, 8, "exact", "boundary")[:3])
     print(f"Path LTE K3 T={T} R={R} S=8: {k3['ms']:.4f} ms a call, "
           f"{ms_str(k3['device_ms'])} ms of device time (plain "
-          f"{k3['plain_ms']:.1f} ms; history in {k3['plan_hist']} memory), "
+          f"{k3['plain_ms']:.1f} ms; {k3['plan_form']} form, history in "
+          f"{k3['plan_hist']} memory), "
           f"bound {k3['bound_ms']:.4f} ms by {k3['bound_by']}", flush=True)
     timing = time_link(torch, link, F, snr, 22, "Path LTE")
     require_kernels(timing, "Path LTE", ("bcjr_kernel",
@@ -3379,7 +3474,8 @@ def lte_path(torch, report, tally):
                           "bits_sent": res.bits_sent.tolist(),
                           "ber": res.bers.tolist(), "errs_35db": e35,
                           "errs_5db": e5, "launches": n_k3,
-                          "demap_joint_launches": n_k6, "k3_own_calls": own,
+                          "demap_joint_launches": n_k6,
+                          "lane_launches": n_lane, "k3_own_calls": own,
                           "k3": k3, "timing": timing}
     return {"bcjr_appdiff": {"LTE": n_k3}}
 
@@ -3742,21 +3838,27 @@ def main():
     print(f"bcjr_appdiff: {k3_tally.mismatches} mismatches in "
           f"{k3_tally.cases} cases, {k3_tally.compared} values; "
           f"{k3_tally.bit_diffs} differ in any bit (largest "
-          f"|diff|/(1+|plain|) {k3_tally.max_rel_err:.3e}); "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"|diff|/(1+|plain|) {k3_tally.max_rel_err:.3e}); by form: "
+          f"{k3_tally.by_form()}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if k3_tally.bit_diffs or set(k3_tally.forms) != {"state", "lane"}:
+        fail(f"bcjr_appdiff differs from its plain version in "
+             f"{k3_tally.bit_diffs} values, or a form went unchecked: "
+             f"{k3_tally.by_form()}")
     t0 = time.perf_counter()
     k3_renorm = K3Tally()
     k3_renorm_parity(torch, k3_renorm, trellises)
     print(f"bcjr_appdiff renorm_every 1, 2 and 4: {k3_renorm.mismatches} "
           f"mismatches, {k3_renorm.bit_diffs} values differing in any bit, "
-          f"in {k3_renorm.cases} cases, {k3_renorm.compared} values; "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"in {k3_renorm.cases} cases, {k3_renorm.compared} values (by "
+          f"form: {k3_renorm.by_form()}); {time.perf_counter() - t0:.1f} s",
+          flush=True)
     if k3_renorm.mismatches or k3_renorm.bit_diffs or not k3_renorm.cases:
         fail("bcjr_appdiff with renorm_every differs from its plain version")
     report["k3_renorm_parity"] = {
         "cases": k3_renorm.cases, "compared": k3_renorm.compared,
         "mismatches": k3_renorm.mismatches,
-        "bit_diffs": k3_renorm.bit_diffs}
+        "bit_diffs": k3_renorm.bit_diffs, "forms": k3_renorm.forms}
 
     lap("k3_parity")
     # ---- Path C: the rate-1/3 turbo link -------------------------------
@@ -4215,6 +4317,7 @@ def main():
               f"{t['global_device_ms']}), bound "
               f"{b_ms:.4f} ms by {b_by}, history "
               f"{t['bound'][3] / HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
+    timings["k3_forms"] = k3_form_timings(torch, trellises)
     # the turbo decoder at the JAX bench's configurations
     # (benchmarks/bench_all.py:135-177): randn frames, nv 0.5, 8 iterations
     rng = np.random.RandomState(15)
@@ -4370,6 +4473,7 @@ def main():
         key: {k: timings[f"k3_{key}"][k]
               for k in ("plan_hist", "shared_device_ms", "global_device_ms")}
         for key in K3_BENCH}
+    extra["forms_device_ms"] = timings["k3_forms"]
     extra.update({
         "renorm": {str(N): {k: v for k, v in r.items() if k != "bound"}
                    for N, r in t["renorm"].items()},
@@ -4382,6 +4486,7 @@ def main():
         "path_launches": path_launches["bcjr_appdiff"],
         "mismatches": k3_tally.mismatches, "compared": k3_tally.compared,
         "bit_diffs": k3_tally.bit_diffs, "max_abs_err": k3_tally.max_abs_err,
+        "forms": k3_tally.forms,
         "ms": t["ms"], "kernel_ms": t["ms"], "device_ms": t["device_ms"],
         "ms_note": MS_NOTE, "plain_ms": t["plain_ms"],
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,

@@ -48,19 +48,27 @@ The kernel runs the forward and backward recursions at once, meeting in
 the middle: each stores its metrics for its first half of the frame, and
 after one barrier each goes on through the other half emitting ``e[t]``
 from the other's stored metrics, with the streams prefetched a few steps
-ahead.  Each direction of a lane is a group of S threads, one a state,
-exchanging metrics by warp shuffles; a block holds 32 lanes.  The
-``[T, S]`` history of a lane lives in shared memory or in a ``[T, R, S]``
-float32 scratch in device memory, as :func:`bcjr_plan` decides from the
-shapes.
+ahead.  It has two forms, which :func:`bcjr_plan` picks from the
+shapes.  In the state form each direction of a lane is a group of S
+threads, one a state, exchanging metrics by warp shuffles, so few lanes
+still fill the card.  In the lane form (``bcjr_kernel_lanes``), taken
+where a thread per lane and direction fills the card alone, one thread
+holds all S metrics of its direction: a step is S independent chains in
+one thread, with no shuffles, and e's two state reductions run once.  It
+needs the shift register's state maps (:func:`_lane_bits` checks the
+tables); any other trellis runs the state form.  A block holds 32 lanes
+in either form.  The ``[T, S]`` history of a lane lives in shared memory
+or in a float32 scratch in device memory, as :func:`bcjr_plan` decides.
+``bcjr_appdiff.launches`` counts the launches and
+``bcjr_appdiff.lane_launches`` those in the lane form.
 
 Dropped from the TPU wrapper, with the reason: ``lane_chunk`` and the
-(8, 128) folding (a TPU tile shape; here a thread owns a state of a
-lane in one direction), ``astride`` (it recomputed odd alphas when the
-history overflowed VMEM; the recomputed values equal the stored ones,
-and here the history goes to device memory when it does not fit shared
-memory), and ``_VMEM_BUDGET`` / ``bcjr_vmem_bytes`` (TPU VMEM sizing).
-The guards stay: binary input, a power-of-two number of states and bijective
+(8, 128) folding (a TPU tile shape; here a thread owns a state, or all
+states, of a lane in one direction), ``astride`` (it recomputed odd
+alphas when the history overflowed VMEM; the recomputed values equal the
+stored ones, and here the history goes to device memory when it does not
+fit shared memory), and ``_VMEM_BUDGET`` / ``bcjr_vmem_bytes`` (TPU VMEM
+sizing).  The guards stay: binary input, a power-of-two number of states and bijective
 per-input state maps.  The CUDA kernel takes S <= 16 and raises beyond.
 """
 from __future__ import annotations
@@ -79,8 +87,12 @@ __all__ = ["bcjr_appdiff", "bcjr_appdiff_plain", "bcjr_plan", "MAX_STATES"]
 MAX_STATES = 16  # a thread a state: 32 lanes of 16 fill 1024 threads
 LANES = 32  # lanes a block, each with 2 S threads (a state a direction)
 MAX_BLOCKS_PER_SM = 32
+# the lane form's threads (2 R) an SM must get for the plan to take it: 6
+# warps, where it overtook the state form in the H100 sweep of PERF.md
+LANE_THREADS_PER_SM = 192
 NEG = -1e30  # start metric of every state but 0
 _MODES = {"exact": 0, "maxlog": 1, "linear": 2}
+_FORMS = {"state": 0, "lane": 1}
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,37 +101,55 @@ def _lib() -> ctypes.CDLL:
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     ip = ctypes.POINTER(ctypes.c_int)
     lib.bcjr_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i, i, i,
-                                i, i, i, i, i, ip, ip, u, u, u, u, p]
+                                i, i, i, i, i, i, ip, ip, u, u, u, u, u, u,
+                                p]
     lib.bcjr_launch.restype = i
     return lib
 
 
 def bcjr_plan(T: int, S: int, R: int, sms: int = H100_SMS,
-              hist: str = None) -> dict:
-    """K3's launch plan: where the history lives, a pure function of the
-    shapes.
+              hist: str = None, form: str = None, shift: bool = True) -> dict:
+    """K3's launch plan: the form and where the history lives, a pure
+    function of the shapes.
 
-    A block holds :data:`LANES` lanes, ``2 * S`` threads each; their
-    history takes ``T * S * LANES`` floats of shared memory.  It goes
-    there when that fits :data:`SMEM_LIMIT` and the blocks an SM can then
-    hold still take the whole grid (``ceil(R / LANES)`` blocks over
-    ``sms`` SMs) at once; otherwise it goes to a ``[T, R, S]`` float32
-    scratch in device memory (which lets an SM hold more blocks).
-    ``hist`` ("shared" or "global") fixes the choice instead, for
-    measuring it; "shared" raises ValueError when it does not fit.
+    The lane form (a thread per lane and direction, all S metrics in it)
+    runs where the trellis has the shift register's state maps (``shift``)
+    and the ``2 R`` threads fill the card: at least
+    :data:`LANE_THREADS_PER_SM` an SM.  Otherwise the state form (a
+    thread per state and direction) fills it with ``2 S R`` threads.
+    ``form`` ("lane" or "state") fixes the choice instead, for measuring
+    it; "lane" raises ValueError where ``shift`` is False.
+
+    A block holds :data:`LANES` lanes, ``2 * S`` threads each in the state
+    form and 2 in the lane form; their history takes ``T * S * LANES``
+    floats of shared memory in either.  It goes there when that fits
+    :data:`SMEM_LIMIT` and the blocks an SM can then hold still take the
+    whole grid (``ceil(R / LANES)`` blocks over ``sms`` SMs) at once;
+    otherwise it goes to a ``[T, R, S]`` float32 scratch in device memory
+    (which lets an SM hold more blocks).  ``hist`` ("shared" or "global")
+    fixes the choice instead, for measuring it; "shared" raises ValueError
+    when it does not fit.
 
     Raises ValueError past :data:`MAX_STATES` states.
 
-    Returns ``{"hist": "shared" | "global", "smem_bytes", "blocks",
-    "threads", "blocks_per_sm"}`` (threads a block; ``blocks_per_sm`` as
-    far as threads and shared memory allow).
+    Returns ``{"form": "lane" | "state", "hist": "shared" | "global",
+    "smem_bytes", "blocks", "threads", "blocks_per_sm"}`` (threads a
+    block; ``blocks_per_sm`` as far as threads and shared memory allow).
     """
     if S > MAX_STATES:
         raise ValueError(f"the CUDA BCJR kernel takes S <= {MAX_STATES} "
                          f"states (got {S})")
+    if form is None:
+        form = ("lane" if shift and 2 * R >= LANE_THREADS_PER_SM * sms
+                else "state")
+    elif form not in ("lane", "state"):
+        raise ValueError('form must be None, "lane" or "state"')
+    elif form == "lane" and not shift:
+        raise ValueError("the lane form takes a trellis with the shift "
+                         "register's state maps only")
     shared = 4 * T * S * LANES
     blocks = -(-R // LANES)
-    threads = 2 * S * LANES
+    threads = 2 * LANES if form == "lane" else 2 * S * LANES
     # an SM runs at most 2048 threads and MAX_BLOCKS_PER_SM blocks
     most = min(MAX_BLOCKS_PER_SM, 2048 // threads)
     fits = shared <= SMEM_LIMIT
@@ -132,8 +162,8 @@ def bcjr_plan(T: int, S: int, R: int, sms: int = H100_SMS,
     elif hist not in ("shared", "global"):
         raise ValueError('hist must be None, "shared" or "global"')
     smem = shared if hist == "shared" else 0
-    return {"hist": hist, "smem_bytes": smem, "blocks": blocks,
-            "threads": threads,
+    return {"form": form, "hist": hist, "smem_bytes": smem,
+            "blocks": blocks, "threads": threads,
             "blocks_per_sm": min(most, SM_SMEM // (smem + SMEM_PER_BLOCK))}
 
 
@@ -340,15 +370,34 @@ def _pack(bits) -> int:
 
 
 @functools.lru_cache(maxsize=64)
+def _lane_bits(trellis):
+    """The lane form's bits of ``trellis`` (``pred``, ``succ``: for each
+    state, whether input 0 takes the second of its shift-register
+    neighbours), or None where the state maps are not the shift
+    register's: the states entering d are 2 (d mod S/2) and 2 (d mod S/2)
+    + 1, and s leaves to s // 2 and s // 2 + S/2 (every CommPy RSC
+    trellis)."""
+    inv, nst, _, _ = _w_tables(trellis)
+    S = len(inv)
+    s = np.arange(S)
+    enter, leave = 2 * (s % (S // 2)), s // 2
+    if not (np.array_equal(np.sort(inv, 1), np.stack([enter, enter + 1], 1))
+            and np.array_equal(np.sort(nst, 1),
+                               np.stack([leave, leave + S // 2], 1))):
+        return None
+    return _pack(inv[:, 0] != enter), _pack(nst[:, 0] != leave)
+
+
+@functools.lru_cache(maxsize=64)
 def _launch_tables(trellis):
     """The kernel's table arguments of ``trellis``: ``inv`` and ``nst`` as
-    input-major ctypes int arrays, then the which and neg bits of u = 0
-    and 1."""
+    input-major ctypes int arrays, the which and neg bits of u = 0 and 1,
+    then the lane form's pred and succ bits (0 where it has none)."""
     inv, nst, which, sign = _w_tables(trellis)
     tab = ctypes.c_int * inv.size
     return (tab(*inv.T.reshape(-1).tolist()), tab(*nst.T.reshape(-1).tolist()),
             _pack(which[0]), _pack(which[1]), _pack(sign[0] < 0),
-            _pack(sign[1] < 0))
+            _pack(sign[1] < 0), *(_lane_bits(trellis) or (0, 0)))
 
 
 def bcjr_appdiff(syn, pan, li, trellis, max_log: bool = False, valid=None,
@@ -394,10 +443,10 @@ def bcjr_appdiff(syn, pan, li, trellis, max_log: bool = False, valid=None,
     if S > MAX_STATES:
         raise NotImplementedError(
             f"the CUDA BCJR kernel takes S <= {MAX_STATES} states (got {S})")
+    plan = bcjr_plan(T, S, R, sm_count(syn.device.index),
+                     shift=_lane_bits(trellis) is not None)
     return _bcjr_launch(trellis, mode, w1, w2, li_io, valid, first, a0, bT,
-                        li, boundary, posterior,
-                        bcjr_plan(T, S, R, sm_count(syn.device.index)),
-                        renorm_every)
+                        li, boundary, posterior, plan, renorm_every)
 
 
 def _bcjr_launch(trellis, mode, w1, w2, li_io, valid, first, a0, bT, li,
@@ -417,6 +466,9 @@ def _bcjr_launch(trellis, mode, w1, w2, li_io, valid, first, a0, bT, li,
         valid = valid.contiguous().view(torch.uint8)
         first = first.contiguous().view(torch.uint8)
     variant = 2 if boundary is not None else (1 if valid is not None else 0)
+    if plan["form"] == "lane" and _lane_bits(trellis) is None:
+        raise ValueError("the lane form takes a trellis with the shift "
+                         "register's state maps only")
     if T and R:
         shared = plan["hist"] == "shared"
         hist = None if shared else torch.empty((T, R, S), dtype=torch.float32,
@@ -428,13 +480,14 @@ def _bcjr_launch(trellis, mode, w1, w2, li_io, valid, first, a0, bT, li,
                 ptr(first), ptr(a0), ptr(bT), e.data_ptr(), ptr(af), ptr(bf),
                 ptr(hist), T, R, S, _MODES[mode], variant,
                 int(renorm_every), int(w1.dtype == torch.bfloat16),
-                int(shared),
-                plan["smem_bytes"], *_launch_tables(trellis),
+                _FORMS[plan["form"]], int(shared), plan["smem_bytes"],
+                *_launch_tables(trellis),
                 torch.cuda.current_stream(dev).cuda_stream)
         if rc:
             raise RuntimeError(f"bcjr_appdiff kernel launch failed: CUDA "
                                f"error {rc}")
         bcjr_appdiff.launches += 1
+        bcjr_appdiff.lane_launches += plan["form"] == "lane"
     elif boundary is not None:  # nothing to run: the carries pass through
         af.copy_(a0)
         bf.copy_(bT)
@@ -442,3 +495,4 @@ def _bcjr_launch(trellis, mode, w1, w2, li_io, valid, first, a0, bT, li,
 
 
 bcjr_appdiff.launches = 0
+bcjr_appdiff.lane_launches = 0

@@ -12,6 +12,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from commpy_tpu_torch.kernels import bcjr as BK
 from commpy_tpu_torch.kernels import qc_bp as K
@@ -239,6 +240,225 @@ def test_bcjr_plan_sends_s16_at_t320_to_device_memory():
     # short frames of every state count fit
     for S in (2, 4, 8, 16):
         assert BK.bcjr_plan(33, S, 130)["hist"] == "shared"
+
+
+# K3's two forms: the lane form on the LTE pass shape, the state form where
+# 2 R threads do not fill the card, and the lane form's walk itself
+
+def _rsc(S):
+    from commpy_tpu_torch.ops.trellis import Trellis
+
+    mem, g, fb = {2: (1, 3, 3), 4: (2, 7, 5), 8: (3, 15, 13),
+                  16: (4, 0o37, 0o21)}[S]
+    return Trellis(np.array([mem]), np.array([[1, g]]), fb, "rsc")
+
+
+def _relabelled():
+    """The 8-state RSC code with states 1-7 relabelled: bijective, not
+    shift-structured."""
+    import copy
+
+    t = copy.copy(_rsc(8))
+    perm = np.r_[0, 1 + np.random.RandomState(0).permutation(7)]
+    nst = np.empty_like(t.next_state_table)
+    out = np.empty_like(t.output_table)
+    nst[perm] = perm[t.next_state_table]
+    out[perm] = t.output_table
+    t.next_state_table, t.output_table = nst, out
+    t._build_inverse_tables()
+    return t
+
+
+@pytest.mark.parametrize("T,S,R,form", [
+    (128, 8, 48 * 1024, "lane"),   # the LTE pass: 48 NII windows, F = 1024
+    (128, 8, 1, "state"),          # one lane
+    (6144, 4, 1, "state"),         # the turbo stream's pass
+    (3, 8, 1024, "state"),         # the LTE tail betas
+    (128, 4, 12288, "state"),      # the bench shapes
+    (256, 4, 4096, "state"),
+    (320, 4, 6144, "state"),
+])
+def test_bcjr_plan_form_by_shape(T, S, R, form):
+    plan = BK.bcjr_plan(T, S, R)
+    assert plan["form"] == form
+    assert plan["threads"] == (64 if form == "lane" else 2 * S * 32)
+    # a trellis without the shift register's maps never takes the lane form
+    assert BK.bcjr_plan(T, S, R, shift=False)["form"] == "state"
+
+
+def test_bcjr_plan_lane_form_at_the_lte_pass():
+    plan = BK.bcjr_plan(128, 8, 48 * 1024)
+    # 4 KB of history a lane: shared memory would hold 56 lanes an SM
+    assert plan["hist"] == "global" and plan["smem_bytes"] == 0
+    assert plan["blocks"] == 48 * 1024 // 32
+    forced = BK.bcjr_plan(128, 8, 48 * 1024, hist="shared")
+    assert forced["smem_bytes"] == 4 * 128 * 8 * 32
+
+
+@pytest.mark.parametrize("form", ["lane", "state"])
+def test_bcjr_plan_form_override(form):
+    for T, S, R in ((128, 8, 49152), (3, 8, 1024), (33, 16, 1)):
+        plan = BK.bcjr_plan(T, S, R, form=form)
+        assert plan["form"] == form
+
+
+@pytest.mark.parametrize("bad", ["lanes", "warp", 1])
+def test_bcjr_plan_raises_on_a_bad_form(bad):
+    with pytest.raises(ValueError, match="form must be"):
+        BK.bcjr_plan(128, 8, 49152, form=bad)
+
+
+def test_bcjr_plan_lane_form_needs_the_shift_maps():
+    with pytest.raises(ValueError, match="shift register"):
+        BK.bcjr_plan(128, 8, 49152, form="lane", shift=False)
+
+
+def test_lane_bits_only_for_shift_register_maps():
+    from commpy_tpu_torch.ops.turbo import lte_trellis
+
+    for S in (2, 4, 8, 16):
+        assert BK._lane_bits(_rsc(S)) is not None
+    assert BK._lane_bits(lte_trellis()) is not None
+    assert BK._lane_bits(_relabelled()) is None
+
+
+def _lane_form_walk(syn, pan, li, trellis, mode, valid=None, first=None,
+                    boundary=None, io_dtype="f32", renorm_every=0):
+    """The lane form's own walk (csrc/bcjr.cu ``bcjr_kernel_lanes``) in
+    PyTorch over all lanes at once: the forward and backward halves, the
+    shift register's neighbours chosen by the pred and succ bits, e's two
+    reductions once each, the renormalisation by a count since the last.
+    Returns what the wrapper returns with ``posterior=True``."""
+    mode_, (_, _, which, sign), w1, w2, li_io, valid, first, a0, bT = \
+        BK._prepare(syn, pan, li, trellis, mode == "maxlog", valid, first,
+                    io_dtype, boundary, "linear" if mode == "linear" else None,
+                    False, renorm_every)
+    lse2 = BK._lse2(mode_)
+    pred, succ = BK._lane_bits(trellis)
+    T, R = w1.shape
+    S = trellis.number_states
+    H, h = S // 2, T // 2
+    x1, x2, lf = w1.float(), w2.float(), li_io.float()
+
+    def branches(t):
+        g = []
+        for u in range(2):
+            row = []
+            for d in range(S):
+                w = x2[t] if which[u, d] else x1[t]
+                w = -w if sign[u, d] < 0 else w
+                row.append(w + lf[t] if u else w)
+            g.append(row)
+        return g
+
+    def keep(new, old, t):
+        if valid is None:
+            return new
+        return [torch.where(valid[t], n, o) for n, o in zip(new, old)]
+
+    def alpha_step(a, g, t):
+        na = []
+        for d in range(S):
+            p = 2 * (d % H)
+            x0, y0 = (a[p + 1], a[p]) if pred >> d & 1 else (a[p], a[p + 1])
+            na.append(lse2(x0 + g[0][d], y0 + g[1][d]))
+        return keep(na, a, t)
+
+    def cands(v, g):
+        q0 = [v[d] + g[0][d] for d in range(S)]
+        q1 = [v[d] + g[1][d] for d in range(S)]
+        c0, c1 = [], []
+        for s in range(S):
+            n = s // 2
+            sw = succ >> s & 1
+            c0.append(q0[n + H] if sw else q0[n])
+            c1.append(q1[n] if sw else q1[n + H])
+        return c0, c1
+
+    def app(al, c0, c1):
+        p0 = [al[s] + c0[s] for s in range(S)]
+        p1 = [al[s] + c1[s] for s in range(S)]
+        o = H
+        while o >= 1:
+            for i in range(o):
+                p0[i] = lse2(p0[i], p0[i + o])
+                p1[i] = lse2(p1[i], p1[i + o])
+            o //= 2
+        return p1[0] - p0[0]
+
+    def renorm(v, since):
+        if renorm_every and since == renorm_every:
+            mx = v[0]
+            for s in range(1, S):
+                mx = torch.maximum(mx, v[s])
+            return [x - mx for x in v], 0
+        return v, since
+
+    if a0 is not None:
+        a, b = list(a0), list(bT)
+    else:
+        exact = (torch.ones(R, dtype=torch.bool) if valid is None
+                 else first)
+        a = [torch.zeros(R) if s == 0 else
+             torch.where(exact, BK.NEG, 0.0).float() for s in range(S)]
+        b = [torch.zeros(R) for _ in range(S)]
+    hist = {}
+    fs = bs = 0
+    for t in range(h):
+        hist[t] = a
+        a, fs = renorm(alpha_step(a, branches(t), t), fs + 1)
+    for t in range(T - 1, h - 1, -1):
+        hist[t] = b
+        c0, c1 = cands(b, branches(t))
+        b, bs = renorm(keep([lse2(x, y) for x, y in zip(c0, c1)], b, t),
+                       bs + 1)
+    e = torch.empty((T, R), dtype=w1.dtype)
+    for t in range(h, T):
+        g = branches(t)
+        e[t] = app(a, *cands(hist[t], g)).to(e.dtype)
+        a, fs = renorm(alpha_step(a, g, t), fs + 1)
+    for t in range(h - 1, -1, -1):
+        c0, c1 = cands(b, branches(t))
+        e[t] = app(hist[t], c0, c1).to(e.dtype)
+        b, bs = renorm(keep([lse2(x, y) for x, y in zip(c0, c1)], b, t),
+                       bs + 1)
+    return BK._finish(e, li, torch.stack(a), torch.stack(b), True, boundary)
+
+
+@pytest.mark.parametrize("variant", ["plain", "masked", "boundary"])
+@pytest.mark.parametrize("mode", ["exact", "maxlog", "linear"])
+@pytest.mark.parametrize("S", [2, 4, 8, 16])
+def test_lane_form_walk_matches_the_plain_version(S, mode, variant):
+    """The lane form's walk equals ``bcjr_appdiff_plain`` in every bit:
+    T = 1, 2, 7 and 33 (halves empty, of one step, odd), R = 37,
+    renorm_every 0, 1 and 4, f32 and bf16 io."""
+    case = S + 3 * ["exact", "maxlog", "linear"].index(mode) + \
+        7 * ["plain", "masked", "boundary"].index(variant)
+    rng = np.random.RandomState(case)
+    for T in (1, 2, 7, 33):
+        R = 37
+        syn, pan = (torch.as_tensor(rng.randn(T, R).astype(np.float32) * 4)
+                    for _ in range(2))
+        li = torch.as_tensor(rng.randn(T, R).astype(np.float32) * 8)
+        kw = {"renorm_every": (0, 1, 4)[(case + T) % 3],
+              "io_dtype": ("f32", "bf16")[(case + T) % 2]}
+        if variant == "masked":
+            valid = np.ones((T, R), bool)
+            valid[:T // 3] = valid[T - T // 3:] = False
+            valid[:, ::5] = True
+            kw.update(valid=torch.as_tensor(valid),
+                      first=torch.as_tensor(rng.rand(R) < 0.5))
+        elif variant == "boundary":
+            kw["boundary"] = tuple(torch.as_tensor(
+                rng.randn(S, R).astype(np.float32) * 3) for _ in range(2))
+        want = BK.bcjr_appdiff_plain(
+            syn, pan, li, _rsc(S), max_log=mode == "maxlog",
+            lse="linear" if mode == "linear" else None, posterior=True, **kw)
+        got = _lane_form_walk(syn, pan, li, _rsc(S), mode, **kw)
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (T, kw)
 
 
 # --------------------------------------------------------------------------
