@@ -86,10 +86,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    under 1e-2, ``errs(35 dB) == 0 < errs(5 dB)``; every K3 call of one
    step (16 passes at T=128, R=49152, S=8 and two tail betas at T=3,
    R=1024) held to its plain version on its own inputs, and both shapes
-   on random inputs with each history placement; the step timed and
-   profiled, K3 at T=128, R=49152 timed beside its bound;
+   on random inputs with each history placement; K3 at T=128, R=49152
+   timed beside its bound;
 10. times each kernel and its plain version with CUDA events (the Viterbi
-   decoder at the bench configuration and the MCS-4 link step; K1 and K2
+   decoder at the bench configuration; K1 and K2
    at the MCS-4 and bench shapes, also by device time, with K2's launch
    plan and back-steps a frame beside those of full walks and of a
    merge-aware walk (``traceback_merge_plain``); K4 at B=512
@@ -102,16 +102,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the L2; K3 with each history placement, and in both forms with each
    placement that fits at the LTE pass, the three bench shapes and the
    turbo stream's R = 1 pass, beside its bound), Path B's noisy
-   decodes end to end (info bits/s, K5's sweeps, its time and bound),
-   the turbo decoder at the JAX bench's configurations, and the Path A
-   and Path C link steps, with their profiles.
+   decodes end to end (info bits/s, K5's sweeps, its time and bound)
+   and the turbo decoder at the JAX bench's configurations.  The links'
+   speed is the benchmark's (``portbench/``), not this script's.
 
-11. (run between 9 and 10) Paths D-G, each through ``montecarlo_ber`` with the kernel counts
-   set to 0 just before and read just after, then timed and profiled
-   (step time, info bits/s, device busy share, top device operations,
-   the kernels the step launched): D, the uncoded K-best(16) 4x4 16-QAM
-   link at F=2048 (65,536 vectors a step), BER at 16.02 dB within rtol
-   1.25 of the reference's 3e-2 and no error at 60 dB, and the K-best
+11. (run between 9 and 10) Paths D-G, each through ``montecarlo_ber``
+   with the kernel counts set to 0 just before and read just after: D,
+   the uncoded K-best(16) 4x4 16-QAM link at F=2048 (65,536 vectors a
+   step), BER at 16.02 dB within rtol 1.25 of the reference's 3e-2 and
+   no error at 60 dB, and the K-best
    search on the card against its plain version on the host on the same
    draws, and 2x2 ML on their first two antennas (at most 1e-4 of vectors
    differing); E, best-first(32) detection
@@ -131,10 +130,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    K=12 code and a 32-state turbo code (the general and torch routes)
    against the plain routes, with ``backend='cuda'`` raising;
 12. (run after 11) Paths H-L, each link through ``montecarlo_ber`` with
-   the kernel counts set to 0 just before and read just after, then timed
-   and profiled: H, the RRC pulse-shaped 16-QAM K=7 link (sps 4, span 8,
-   alpha 0.35, max-log) at F=2048, no error at 35 dB and errors at 5 dB,
-   and with exact LLRs its errors within 1.5x of the symbol-rate link's
+   the kernel counts set to 0 just before and read just after: H, the
+   RRC pulse-shaped 16-QAM K=7 link (sps 4, span 8, alpha 0.35,
+   max-log) at F=2048, no error at 35 dB and errors at 5 dB, and with
+   exact LLRs its errors within 1.5x of the symbol-rate link's
    at the highest of 8-12 dB where both count 1000; I, the ISI link
    (channel H3, 21-tap MMSE, QPSK, K=7) at F=2048, no error at 35 dB,
    errors at 2 dB and at 8 dB a tenth of a one-tap receiver's; K1 and K2
@@ -166,8 +165,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (K1/K2 counted) within 25% of the batched MCS-4 link's BER at the same
    noise_std, one ``channelcoding.turbo_decode`` (K3) equal to the torch
    route's bits, ``LinkModel.link_performance_device`` for uncoded QPSK
-   within rtol 0.25 of erfc, and the host loops' time a chunk;
-   each link timed and profiled;
+   within rtol 0.25 of erfc;
 14. (run after 13) Paths P-R, at world size 1 over NCCL
    (``make_mesh()``), each with the kernel counts set to 0 just before
    and read just after: P, ``montecarlo_ber`` with ``mesh=`` on the
@@ -189,7 +187,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    flooding-15) equal to the plain flooding core, the sharded FIR on 2^22
    samples with Path H's RRC taps within 1e-5 of ``fir_filter``, and a
    one-stage ``pipeline_map`` of four link stages equal to their serial
-   composition; each timed and profiled;
+   composition;
 15. (run after 14) the examples: each ``examples/torch`` script's
    ``main(device="cuda")`` at its default size, the kernel counts set to
    0 just before and read just after, its wall time, the checks of
@@ -198,13 +196,6 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (the turbo decoder's and the renormalising stream's) recorded from
    the scripts held to their plain versions; all five kernels must be
    launched;
-
-With ``--ab DIR`` (a checkout of another commit, e.g. the parent unpacked
-with ``git archive``), it also loads that checkout's ``commpy_tpu_torch``
-under another name, builds its kernels there, and times its K1, K2 and
-K4, and the MCS-4 and Path A link steps, beside this tree's on the same
-inputs in turns (other, this, this, other), holding the two trees'
-outputs equal.
 
 Exits non-zero, with no result line, when there is no CUDA device or the
 port cannot be imported, and on any failed check.  The last line is
@@ -220,29 +211,20 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-# that peak counts a fused multiply-add as two operations; the adds,
-# multiplies, compares and selects the bounds count are one instruction
-# each, at half of it.  An SM has 64 int32 lanes against 128 float32 ones.
-F32_INSTR_PER_S = F32_OPS_PER_S / 2
-INT32_OPS_PER_S = F32_OPS_PER_S / 4
+# the kernel rooflines' one yardstick, the benchmark's: its peaks and
+# bounds, imported whole so that this script's bounds and the
+# benchmark's k*_roofline metrics read the same arithmetic
+from portbench import bounds
+from portbench.bounds import (F32_INSTR_PER_S, F32_OPS_PER_S,  # noqa: F401
+                              HBM_BYTES_PER_S, INT32_OPS_PER_S,
+                              MSA_OPS_PER_EDGE, k1_bound, k2_bound)
+from portbench.bounds_k3 import (LSE2_FLOPS, SFU_OPS_PER_S,  # noqa: F401
+                                 k3_bound, k3_bound_ms)
+
 SOURCE = "commpy_tpu_torch/kernels/csrc/viterbi_acs.cu"
 QC_SOURCE = "commpy_tpu_torch/kernels/csrc/qc_bp.cu"
-# float operations per edge and iteration of a min-sum check update with
-# its totals and syndrome: v2c subtract, |x|, two-minimum tracking (2),
-# sign and zero tracking (2), leave-one-out select, scale, offset, clamp,
-# sign product, the total update and the syndrome's XOR
-MSA_OPS_PER_EDGE = 15
 BCJR_SOURCE = "commpy_tpu_torch/kernels/csrc/bcjr.cu"
 DEMAP_SOURCE = "commpy_tpu_torch/kernels/csrc/demap.cu"
-# exp and log1p on the special-function units: 16 per SM per clock, at the
-# 1.98 GHz behind F32_OPS_PER_S (132 SMs x 128 lanes x 2 x 1.98 GHz)
-SFU_OPS_PER_S = 16 * 132 * 1.98e9
-# float operations of one lse2 besides exp and log1p: max, subtract, add
-# (log-MAP); max (max-log); max, subtract, multiply, subtract, max, add
-# (linear)
-LSE2_FLOPS = {"exact": 3, "maxlog": 1, "linear": 5}
 MS_NOTE = ("ms: CUDA events around back-to-back wrapper calls, as for every "
            "kernel; device_ms: the kernel's own device time (torch.profiler), "
            "null where five profiles held no record of the kernel")
@@ -355,38 +337,21 @@ def regs_summary(entries):
             f"({len(entries)} instantiations)")
 
 
-def k1_bound(B, T, n, S):
-    """Least time of the ACS pass: r read once, decisions and best states
-    written once; per state-step two adds, a compare, the renormalising
-    subtract and one compare of the minimum, plus the 2^n distinct branch
-    metrics of each step."""
-    G = -(-S // 32)
-    nbytes = 4 * B * T * (n + G + 1)
-    ops = B * T * (5 * S + 2 ** n * (2 * n - 1))
-    return nbytes, ops
-
-
 def k2_steps(T, S, tb_depth, skip=False):
-    """Back-steps of a frame's full walks: each window's walk from its end
-    to its position, or, with ``skip``, to log2(S) - 1 steps above it,
-    where K2 stops (the MSB it emits is a bit of the state there)."""
-    walk = np.minimum(min(tb_depth, T + 1) - 2, T - 1 - np.arange(T))
+    """Back-steps of a frame's full walks (``bounds.k2_steps``), or, with
+    ``skip``, of walks that stop log2(S) - 1 steps above their position,
+    as K2 does (the MSB it emits is a bit of the state there): the full
+    walks of a frame and a window that many steps shorter."""
     msb = max(S.bit_length() - 2, 0) if skip else 0
-    return int((walk - msb).clip(min=0).sum())
-
-
-def k2_bound(B, T, S, steps):
-    """Least time of the traceback: decisions and best states read once,
-    bits written once; four integer operations per back-step, ``steps``
-    back-steps in all."""
-    G = -(-S // 32)
-    return B * T * (4 * G + 4 + 1), 4 * steps
+    return bounds.k2_steps(T - msb, tb_depth - msb)
 
 
 def bound_ms(nbytes, ops, ops_per_s=F32_INSTR_PER_S):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """``bounds.bound_s`` in ms, and what bounds it: "bytes" or
+    "operations"."""
+    by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / ops_per_s else \
+        "operations"
+    return bounds.bound_s(nbytes, ops, ops_per_s) * 1e3, by
 
 
 def kernel_input(torch, trellis, decoding_type, B, L, seed, dev):
@@ -545,58 +510,6 @@ def device_launches(torch, fn):
             if str(getattr(e, "device_type", "")).endswith("CUDA")
             and not e.key.startswith("link.") and _device_us(e, "self_") > 0)
     return n or "not measured"
-
-
-def profile_link_step(torch, link, gen, noise_std, step_s, steps=2,
-                      frames=2048, label="MCS-4"):
-    """Device time of each kernel and of each ``link.<stage>`` span over
-    ``steps`` link steps of ``frames`` frames (torch.profiler), and the
-    device's busy share of the step time measured without the profiler.
-
-    A stage has two readings: ``device_span_ms``, the extent of its span
-    on the device's timeline (first kernel start to last kernel end, all
-    its kernels included), and ``aten_kernels_ms``, the summed time of
-    the kernels the profiler ties to PyTorch operators inside it (it does
-    not tie the kernels launched through ctypes, K1, K2 and K4, to the
-    span)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            link.link_step(gen, frames, noise_std)
-        torch.cuda.synchronize()
-    rows, stages = [], {}
-    for e in prof.key_averages():
-        on_device = str(getattr(e, "device_type", "")).endswith("CUDA")
-        if e.key.startswith("link."):
-            side = "device_span_ms" if on_device else "aten_kernels_ms"
-            stages.setdefault(e.key, {})[side] = (_device_us(e, "") / steps
-                                                  / 1e3)
-            continue
-        us = _device_us(e, "self_")
-        if on_device and us > 0:
-            rows.append({"kernel": e.key[:120], "ms_per_step":
-                         us / steps / 1e3, "calls_per_step": e.count / steps})
-    rows.sort(key=lambda row: -row["ms_per_step"])
-    busy_ms = sum(row["ms_per_step"] for row in rows)
-    launches = sum(row["calls_per_step"] for row in rows)
-    out = {"device_busy_ms_per_step": busy_ms,
-           "step_ms": step_s * 1e3,
-           "device_idle_share": (1 - busy_ms / (step_s * 1e3)
-                                 if busy_ms else "not measured"),
-           "stages_device_ms_per_step": stages,
-           "device_launches_per_step": launches,
-           "kernels": rows[:25],
-           "kernel_names": [row["kernel"] for row in rows]}
-    top = ", ".join(f"{row['kernel'][:40]} {row['ms_per_step']:.3f}"
-                    for row in rows[:6])
-    split = ", ".join(f"{k} {v.get('device_span_ms', float('nan')):.3f}"
-                      for k, v in stages.items())
-    print(f"{label} link step profile: device busy {busy_ms:.3f} ms of "
-          f"{step_s * 1e3:.3f} ms in {launches:.0f} launches; stages (device "
-          f"span ms): {split}; top kernels: {top}", flush=True)
-    return out
 
 
 class QCTally:
@@ -863,14 +776,12 @@ def k5_parity(torch, tally, codes):
 
 
 def qc_bound(B, n, edges, iters, store_bytes=0):
-    """Least time of a QC BP decode: LLRs read once, posteriors (float32)
-    and decisions (int8) written once, against MSA_OPS_PER_EDGE per edge
-    and iteration for ``iters`` (a [B] array: the sweeps each frame
-    needs).  ``store_bytes``, the streamed kernel's message store read and
-    written once per sweep, is reported beside it (``store_bound``)."""
-    nbytes = B * n * (4 + 4 + 1)
-    ops = MSA_OPS_PER_EDGE * edges * int(np.sum(iters))
-    return nbytes, ops, 2 * store_bytes * edges * int(np.sum(iters))
+    """``bounds.qc_bound`` (bytes, operations) for ``iters`` (a [B] array:
+    the sweeps each frame needs), and the bytes of the streamed kernel's
+    message store, ``store_bytes`` a message, read and written once a
+    sweep, reported beside it (``store_bound``)."""
+    return (*bounds.qc_bound(B, n, edges, iters),
+            2 * store_bytes * edges * int(np.sum(iters)))
 
 
 def sweeps_needed(torch, params, dec, n_iters):
@@ -1238,37 +1149,6 @@ def k3_form_timings(torch, trellises):
     return out
 
 
-def k3_bound(T, R, S, mode, variant, io_bytes=4, renorm_every=0):
-    """Least time of one K3 pass: the streams (w1, w2, li) read once and e
-    written once (the masks, and the boundary metrics in and out, too);
-    per lane and step 6S + 9 adds and subtracts (branch metrics with the
-    prior, candidates, APP terms, e) and 4S - 2 lse2 of LSE2_FLOPS float
-    operations each, plus an exp and a log1p each in log-MAP on the
-    special-function units.  With ``renorm_every`` N, each recursion also
-    takes a lane's maximum (S - 1 max) and subtracts it (S) every N steps.
-    Returns (bytes, float operations, special operations, history bytes):
-    this design's alpha history, written and read once, is reported beside
-    it as ``store_bound_ms``."""
-    steps = T * R
-    nbytes = 4 * steps * io_bytes
-    if variant == "masked":
-        nbytes += steps + R
-    if variant == "boundary":
-        nbytes += 4 * S * R * 4
-    n_lse = 4 * S - 2
-    flops = steps * (6 * S + 9 + n_lse * LSE2_FLOPS[mode])
-    if renorm_every:
-        flops += 2 * (T // renorm_every) * R * (2 * S - 1)
-    sfu = 2 * steps * n_lse if mode == "exact" else 0
-    return nbytes, flops, sfu, 2 * steps * S * 4
-
-
-def k3_bound_ms(nbytes, flops, sfu):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(flops / F32_INSTR_PER_S, sfu / SFU_OPS_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def k6_bound(n, m, maxlog=False):
     """Least work of one K6 call on ``n`` symbols of an ``m``-point
     constellation: the symbols (8 bytes) read and ``log2(m)`` float32 LLRs
@@ -1436,65 +1316,6 @@ class K6Watch:
         return out
 
 
-def load_other_port(root):
-    """``commpy_tpu_torch`` of the checkout at ``root``, imported as the
-    package ``other_port`` (its kernels build under ``root/build``): its
-    ACS and QC BP kernel modules and its link models."""
-    import importlib
-    import importlib.util
-
-    pkg = os.path.join(os.path.abspath(root), "commpy_tpu_torch")
-    spec = importlib.util.spec_from_file_location(
-        "other_port", os.path.join(pkg, "__init__.py"),
-        submodule_search_locations=[pkg])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules["other_port"] = mod
-    spec.loader.exec_module(mod)
-    return (importlib.import_module("other_port.kernels.viterbi_acs"),
-            importlib.import_module("other_port.kernels.qc_bp"),
-            importlib.import_module("other_port.models"))
-
-
-def host_ms(torch, fn, reps):
-    """Mean wall time of ``fn`` in ms on the host clock, over ``reps``
-    calls after one, ending in ``torch.cuda.synchronize()``."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / reps * 1e3
-
-
-def ab_compare(torch, runs):
-    """Each of ``runs`` ({name: (kernel name or None, this tree's call, the
-    other tree's call)}) timed in turns, other, this, this, other, the two
-    trees' outputs held equal: a kernel by device time (torch.profiler)
-    and CUDA events a call, a link step (kernel name None) by the host
-    clock."""
-    out = {}
-    for name, (kname, mine, other) in runs.items():
-        a, b = mine(), other()
-        torch.cuda.synchronize()
-        if not all(torch.equal(x, y) for x, y in zip(a, b)):
-            fail(f"A/B {name}: the two trees' outputs differ")
-        rec = {}
-        for who, fn in (("other", other), ("this", mine), ("this", mine),
-                        ("other", other)):
-            if kname is None:
-                rec.setdefault(f"{who}_host_ms", []).append(
-                    host_ms(torch, fn, 5))
-                continue
-            rec.setdefault(f"{who}_device_ms", []).append(
-                device_ms(torch, fn, 10, kname))
-            rec.setdefault(f"{who}_ms", []).append(cuda_ms(torch, fn, 10))
-        out[name] = rec
-        print(f"A/B {name}: " + "; ".join(f"{k} {v}" for k, v in rec.items()),
-              flush=True)
-    return out
-
-
 def link_draws(torch, link, frames, seed):
     """Bits, unit complex noise and channel of a MIMO or OFDM link, drawn
     as its ``link_step`` draws them."""
@@ -1516,36 +1337,6 @@ def step_errors(torch, link, frames, snr_db, seed):
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     return int(link.link_step(g, frames, float(link.noise_std_fn(snr_db))))
-
-
-def time_link(torch, link, frames, snr_db, seed, label, reps=3):
-    """Step time (s), info bits/s and the profile of one link."""
-    g = torch.Generator(device="cuda")
-    g.manual_seed(seed)
-    ns = float(link.noise_std_fn(snr_db))
-    link.link_step(g, frames, ns)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        link.link_step(g, frames, ns)
-    torch.cuda.synchronize()
-    step = (time.perf_counter() - t0) / reps
-    prof = profile_link_step(torch, link, g, ns, step, steps=2,
-                             frames=frames, label=label)
-    names = prof["kernel_names"]
-    ours = [n for n in names if any(k in n for k in KERNEL_NAMES)]
-    print(f"{label}: step {step * 1e3:.3f} ms, "
-          f"{frames * link.frame_bits / step:.4g} info bits/s at "
-          f"{snr_db:.2f} dB; {len(names)} device kernels, of them the "
-          f"port's: {ours}", flush=True)
-    return {"step_s": step, "info_bits_per_s": frames * link.frame_bits
-            / step, "snr_db": snr_db, "frames": frames, "profile": prof}
-
-
-def require_kernels(timing, label, wanted):
-    for w in wanted:
-        if not any(w in name for name in timing["profile"]["kernel_names"]):
-            fail(f"{label}: the profiled step launched no {w}")
 
 
 def mc(link, snrs, seed, frames, rounds):
@@ -1576,8 +1367,8 @@ def mimo_ofdm_paths(torch, report, k7):
     link, the OFDM-MIMO conv link and the OFDM-LDPC link, each through
     ``montecarlo_ber`` with the kernel counts set to 0 just before and
     read just after; the kernels of each path against their plain
-    versions on the path's own inputs; the links' rates and profiles.
-    Returns {kernel: {path: launches}} and the parity tallies."""
+    versions on the path's own inputs.  Returns {kernel: {path:
+    launches}}."""
     from commpy_tpu_torch.kernels import qc_bp as QK
     from commpy_tpu_torch.kernels import viterbi_acs as K
     from commpy_tpu_torch.models import (make_bestfirst_ldpc_mimo_link,
@@ -1637,8 +1428,6 @@ def mimo_ofdm_paths(torch, report, k7):
     if differ > 1e-4 or ml_differ > 1e-4:
         fail(f"Path D: {differ} of vectors' K-best symbols and {ml_differ} "
              f"of their ML symbols differ between the card and the host")
-    out["path_d"]["timing"] = time_link(torch, kb, 2048, snr_d, 33,
-                                        "Path D K-best MIMO")
 
     # ---- Path E: best-first + WiMAX LDPC(1440,720) MSA-15 on K4
     wimax = L.get_ldpc_code_params(os.path.join(L.DESIGNS, "wimax",
@@ -1675,10 +1464,6 @@ def mimo_ofdm_paths(torch, report, k7):
         bits, noise, h = link_draws(torch, link, 512, seed)
         llr = link.receive(bits, noise, float(link.noise_std_fn(snr)), h)
         k4_on(torch, qc_w, llr, k4_tally)
-    out["path_e"]["timing"] = time_link(torch, bf, 512, 18.0, 38,
-                                        "Path E best-first LDPC MIMO")
-    require_kernels(out["path_e"]["timing"], "Path E",
-                    ["qc_bp_resident_kernel"])
 
     # ---- Path F: OFDM + 2x2 16-QAM K-best(8) + K=7 soft Viterbi (config 5)
     of = make_ofdm_mimo_conv_link(trellis=k7, modulation_m=16, nb_tx=2,
@@ -1718,10 +1503,6 @@ def mimo_ofdm_paths(torch, report, k7):
                  f"path's LLRs ({t.mismatches} of {t.compared})")
     out["path_f"]["parity"] = {k: (t.mismatches, t.compared)
                                for k, t in f_tallies.items()}
-    out["path_f"]["timing"] = time_link(torch, of, 2048, 14.0, 41,
-                                        "Path F OFDM-MIMO conv")
-    require_kernels(out["path_f"]["timing"], "Path F",
-                    ["acs_warp_kernel", "traceback_kernel"])
 
     # ---- Path G: OFDM + 802.11n LDPC (1944, 1/2) 16-QAM, 4-tap Rayleigh
     q1944 = Q.ieee80211n_params(1944, "1/2")
@@ -1788,10 +1569,6 @@ def mimo_ofdm_paths(torch, report, k7):
         k4_on(torch, q1944, lk.receive(bits, noise,
                                        float(lk.noise_std_fn(13.0)), h),
               k4_tally)
-    out["path_g"]["timing"] = time_link(torch, g_links["ls"], 512, 13.0, 49,
-                                        "Path G OFDM-LDPC (LS CSI)")
-    require_kernels(out["path_g"]["timing"], "Path G",
-                    ["qc_bp_resident_kernel"])
     print(f"K4 on Paths E and G's own LLRs: {k4_tally.mismatches} "
           f"mismatches in {k4_tally.cases} cases, {k4_tally.compared} "
           f"decisions", flush=True)
@@ -1913,8 +1690,8 @@ def dsp_code_paths(torch, report, k7):
     DVB-S2 BCH + LDPC concatenation (K5), each link through
     ``montecarlo_ber`` with the kernel counts set to 0 just before and
     read just after; the kernels against their plain versions on the
-    paths' own inputs; the decoders' and links' rates and profiles, and
-    the equalizer at the JAX bench's shape.  Returns {kernel: {path:
+    paths' own inputs; the decoders' rates (CUDA events), and the
+    equalizer at the JAX bench's shape.  Returns {kernel: {path:
     launches}}."""
     from commpy_tpu_torch.kernels import qc_bp as QK
     from commpy_tpu_torch.kernels import viterbi_acs as K
@@ -1988,10 +1765,6 @@ def dsp_code_paths(torch, report, k7):
              f"{snrs[i]} dB")
     out["path_h"]["parity"] = viterbi_on_link(torch, rrc, 12.0, 65,
                                               "Path H", k7)
-    out["path_h"]["timing"] = time_link(torch, rrc, 2048, 12.0, 66,
-                                        "Path H RRC conv")
-    require_kernels(out["path_h"]["timing"], "Path H",
-                    ["acs_warp_kernel", "traceback_kernel"])
 
     # ---- Path I: ISI channel H3 + 21-tap MMSE, QPSK K=7 soft, F=2048, 8 dB
     h3 = (np.array([1.0, 0.45, -0.2]) + 1j * np.array([0.1, -0.3, 0.05])
@@ -2019,10 +1792,6 @@ def dsp_code_paths(torch, report, k7):
              f"one tap ({e_one}) tenfold at 8 dB")
     out["path_i"]["parity"] = viterbi_on_link(torch, isi, 8.0, 69, "Path I",
                                               k7)
-    out["path_i"]["timing"] = time_link(torch, isi, 2048, 8.0, 70,
-                                        "Path I ISI MMSE conv")
-    require_kernels(out["path_i"]["timing"], "Path I",
-                    ["acs_warp_kernel", "traceback_kernel"])
 
     # equalizer at the JAX bench's shape (bench_all.py equalize_mmse_t31_l5):
     # per-batch MMSE taps, B=256, n=4096, Lh=5, T=31
@@ -2101,8 +1870,6 @@ def dsp_code_paths(torch, report, k7):
           f"errors of {4096 * 21}; tpc_31_21_sq_chase4 B=64 {tpc_ms:.3f} "
           f"ms, {out['path_j']['tpc_31_21_sq_chase4']['info_bits_per_s']:.4g}"
           f" info bits/s, card = host on 4 frames", flush=True)
-    out["path_j"]["timing"] = time_link(torch, chase31, 4096, 4.0, 75,
-                                        "Path J BCH (31,21) Chase-4")
 
     # ---- Path K: RS(255,223) decoder, RS(204,188) link hard and GMD
     c255 = RS.rs_construct(8, 16)
@@ -2134,9 +1901,6 @@ def dsp_code_paths(torch, report, k7):
     for d, (hi, lo) in rs_errs.items():
         if not hi == 0 < lo:
             fail(f"Path K: RS(204,188) {d} errors at 40/15 dB {hi}/{lo}")
-    out["path_k"]["timing"] = {
-        d: time_link(torch, lk, 2048, 15.0, 78, f"Path K RS(204,188) {d}")
-        for d, lk in rs_links.items()}
 
     # ---- Path L: DVB-S2 BCH(t=12) + LDPC (16200, 1/2) QPSK, MSA-30, F=512
     pd = D.dvbs2_qc_params(D.synthetic_address_table(16200, "1/2", seed=0),
@@ -2185,10 +1949,6 @@ def dsp_code_paths(torch, report, k7):
           f"{chien_flop:.3g} flop a step; K5 on the path's LLRs: "
           f"{k5_tally.mismatches} mismatches in {k5_tally.cases} cases, "
           f"{k5_tally.compared} values", flush=True)
-    out["path_l"]["timing"] = time_link(torch, cc, 512, 5.0, 82,
-                                        "Path L DVB-S2 BCH + LDPC")
-    require_kernels(out["path_l"]["timing"], "Path L",
-                    ["qc_bp_streamed_kernel"])
     report.update(out)
     return launches
 
@@ -2201,8 +1961,8 @@ def polar_path(torch, report):
     6 dB, errors at -1 dB, fewer frame errors than SC on the same draws at 2 dB,
     SCL with one path decoding as SC); the SC, scan SCL and unrolled SCL
     decoders at the bench's batches (CUDA events), each decoding a B=16
-    batch on the card as on the host CPU (full outputs); the link step's
-    profile.  Polar has no kernel: nothing of K1-K5 runs here."""
+    batch on the card as on the host CPU (full outputs).  Polar has no
+    kernel: nothing of K1-K5 runs here."""
     from commpy_tpu_torch.models import make_polar_awgn_link
     from commpy_tpu_torch.ops import polar as PP
 
@@ -2215,9 +1975,7 @@ def polar_path(torch, report):
     # the links' SNR is the JAX package's: Es/N0 = rate * snr, so with QPSK
     # snr = Eb/N0 + 10 log10(2)
     snr_2, snr_6, snr_m1 = (db + 10 * np.log10(2) for db in (2.0, 6.0, -1.0))
-    t0 = time.perf_counter()
     res = mc(link, [snr_2], 90, 512, 2)
-    mc_s = time.perf_counter() - t0
     e6 = step_errors(torch, link, 512, snr_6, 91)
     em1 = step_errors(torch, link, 512, snr_m1, 92)
     # the same payload bits and noise through both links (same shapes)
@@ -2234,14 +1992,14 @@ def polar_path(torch, report):
                                           device=dev)(llr_sc)}
     list1_differ = {k: int((v != sc_dec).sum()) for k, v in list1.items()}
     out = {"ber_2db": float(res.bers[0]), "bits_sent": float(
-        res.bits_sent[0]), "rounds": res.rounds, "mc_s": mc_s,
+        res.bits_sent[0]), "rounds": res.rounds,
         "errs_6db": e6, "errs_m1db": em1,
         "frame_errors_2db": {"scl8_crc11": fe_scl, "sc": fe_sc},
         "list1_vs_sc_bits_differ": list1_differ}
     print(f"Path M polar (1024, 512) QPSK SCL-8 + CRC-11, F=512: BER "
-          f"{res.bers[0]:.4e} at Eb/N0 2 dB ({res.rounds} steps, "
-          f"{mc_s:.1f} s); errors {e6} at Eb/N0 6 dB, {em1} at -1 dB; frame "
-          f"errors at 2 dB on the same draws SCL-8 + CRC-11 {fe_scl}, SC {fe_sc}; "
+          f"{res.bers[0]:.4e} at Eb/N0 2 dB ({res.rounds} steps); errors "
+          f"{e6} at Eb/N0 6 dB, {em1} at -1 dB; frame errors at 2 dB on the "
+          f"same draws SCL-8 + CRC-11 {fe_scl}, SC {fe_sc}; "
           f"SCL with one path vs SC bits differ {list1_differ}", flush=True)
     if not e6 == 0 < em1 or em1 < 0.01 * 512 * 512:
         fail(f"Path M: {e6} errors at 6 dB, {em1} at -1 dB")
@@ -2312,8 +2070,6 @@ def polar_path(torch, report):
               f"{be}: {v['median_ms']:.2f} [{v['min_ms']:.2f} - "
               f"{v['max_ms']:.2f}] {v['launches']}"
               for be, v in sweep.items()), flush=True)
-    out["timing"] = time_link(torch, link, 512, snr_2, 95,
-                              "Path M polar SCL-8 + CRC-11")
     report["path_m"] = out
 
 
@@ -2324,8 +2080,8 @@ def idd_path(torch, report):
     F=512 (46,080 vectors a step), through ``montecarlo_ber`` at 17, 18 and
     19 dB with K4's count set to 0 just before and read just after (two
     decodes a step); K4 on the LLRs the loop hands its decoder and its
-    decision, against its plain version; the step's profile.  Returns
-    {kernel: {path: launches}}."""
+    decision, against its plain version.  Returns {kernel: {path:
+    launches}}."""
     from commpy_tpu_torch.kernels import qc_bp as QK
     from commpy_tpu_torch.models import (idd_decoder_device,
                                          make_idd_kbest_ldpc_mimo_link)
@@ -2378,9 +2134,6 @@ def idd_path(torch, report):
     if tally.mismatches or len(seen) != 2:
         fail(f"Path N: K4 disagrees with its plain version on the loop's "
              f"LLRs ({tally.mismatches} of {tally.compared})")
-    out["timing"] = time_link(torch, link, 512, 18.0, 102,
-                              "Path N IDD K-best LDPC MIMO")
-    require_kernels(out["timing"], "Path N", ["qc_bp_resident_kernel"])
     report["path_n"] = out
     return {"qc_bp_resident": {"N": launches}}
 
@@ -2396,8 +2149,7 @@ def api_path(torch, report):
     (K3) against the torch route's bits, and each of its K3 calls' outputs
     against the plain version on that call's inputs;
     ``LinkModel.link_performance_device`` for uncoded QPSK against
-    ``erfc(sqrt(snr/2))/2``; the host loops' time a chunk.
-    Returns {kernel: {path: launches}}."""
+    ``erfc(sqrt(snr/2))/2``.  Returns {kernel: {path: launches}}."""
     import commpy_tpu_torch.channelcoding as CC
     from commpy_tpu_torch.channelcoding import convcode as CCV
     from commpy_tpu_torch.channels import SISOFlatChannel
@@ -2428,10 +2180,8 @@ def api_path(torch, report):
     K.acs_forward.launches = K.traceback.launches = 0
     CCV.viterbi_decode = capture
     try:
-        t0 = time.perf_counter()
         BERs, BEs, _, NCs = Wifi80211(4).link_performance(
             channel, [12.0], 400, 2000, send_chunk=1200)
-        wifi_s = time.perf_counter() - t0
     finally:
         CCV.viterbi_decode = vd
     chunks = int(NCs.sum())
@@ -2459,8 +2209,7 @@ def api_path(torch, report):
     res = mc(dl, [12.0], 111, 2048, 2)
     ratio = float(BERs[0] / res.bers[0])
     wifi = {"ber": float(BERs[0]), "bit_errors": errs, "chunks": chunks,
-            "chunk_bits": 1200, "s": wifi_s, "ms_per_chunk":
-            wifi_s / chunks * 1e3, "noise_std": float(channel.noise_std),
+            "chunk_bits": 1200, "noise_std": float(channel.noise_std),
             "device_link_noise_std": ns_dl,
             "device_link_ber": float(res.bers[0]),
             "device_link_bits": float(res.bits_sent[0]), "ratio": ratio,
@@ -2469,8 +2218,8 @@ def api_path(torch, report):
                 k: {"mismatches": v[0], "compared": v[1]}
                 for k, v in k12.items()}}}
     print(f"Path O Wifi80211(4).link_performance at 12 dB: BER "
-          f"{BERs[0]:.4e} ({errs} errors in {chunks} chunks of 1200 bits, "
-          f"{wifi['ms_per_chunk']:.2f} ms a chunk); batched MCS-4 link BER "
+          f"{BERs[0]:.4e} ({errs} errors in {chunks} chunks of 1200 bits); "
+          f"batched MCS-4 link BER "
           f"{res.bers[0]:.4e}, ratio {ratio:.3f}; noise_std "
           f"{channel.noise_std:.9f} vs {ns_dl:.9f}; launches "
           f"{wifi['launches']}; K1/K2 vs plain on {len(seen)} chunks' "
@@ -2539,53 +2288,25 @@ def api_path(torch, report):
             2.0)
 
     snrs = np.arange(0, 9, 2.0)
-    t0 = time.perf_counter()
     bers = model().link_performance_device(snrs, 10 ** 6, 1000, 1000,
                                            frames_per_round=64)
-    dev_s = time.perf_counter() - t0
     theory = erfc(np.sqrt(10 ** (snrs / 10) / 2)) / 2
     host = model()
     host.modulate = lambda b: M.modulate(b, const, 2).cpu().numpy()
     host.receive = (lambda y, h, c, nv: M.demodulate_hard(
         torch.as_tensor(y, device="cuda"), const, 2).cpu().numpy())
-    t0 = time.perf_counter()
     host_bers = host.link_performance([6.0], 50_000, 10 ** 9, 1000)
-    host_s = time.perf_counter() - t0
     qpsk = {"snrs_db": snrs.tolist(), "bers": bers.tolist(),
-            "theory": theory.tolist(), "s": dev_s,
-            "host_loop_ber_6db": float(host_bers[0]),
-            "host_loop_ms_per_chunk": host_s / 50 * 1e3}
+            "theory": theory.tolist(),
+            "host_loop_ber_6db": float(host_bers[0])}
     print(f"Path O LinkModel.link_performance_device uncoded QPSK: BER "
-          f"{bers.tolist()} vs erfc {theory.tolist()} ({dev_s:.1f} s); host "
-          f"loop at 6 dB BER {host_bers[0]:.4e}, "
-          f"{qpsk['host_loop_ms_per_chunk']:.2f} ms a 1000-bit chunk",
-          flush=True)
+          f"{bers.tolist()} vs erfc {theory.tolist()}; host loop at 6 dB "
+          f"BER {host_bers[0]:.4e}", flush=True)
     if not np.allclose(bers, theory, rtol=0.25):
         fail(f"Path O: uncoded QPSK {bers} vs {theory}")
     report["path_o"] = {"wifi80211": wifi, "turbo_decode": turbo,
                         "qpsk_link_performance_device": qpsk}
     return launches
-
-
-def profile_call(torch, fn, step_s, label, steps=2):
-    """:func:`profile_link_step` of a call that is not a link step."""
-    import types
-
-    shim = types.SimpleNamespace(link_step=lambda g, frames, ns: fn())
-    return profile_link_step(torch, shim, None, None, step_s, steps=steps,
-                             label=label)
-
-
-def host_step_s(torch, fn, reps=3):
-    """Host-clock seconds of one call of ``fn``, the device drained, after
-    one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / reps
 
 
 def dp_path(torch, report, link, main_res, uncoded_2db, k7):
@@ -2637,14 +2358,6 @@ def dp_path(torch, report, link, main_res, uncoded_2db, k7):
                  for r in range(3)]
     if any(a != b for a, b in per_round):
         fail(f"Path P: mesh and mesh-less rounds differ: {per_round}")
-    step_mesh = host_step_s(torch, lambda: rf_mesh(1, 0))
-    step_solo = host_step_s(torch, lambda: rf_solo(1, 0))
-    # what every rank repeats: the round's whole draw (bits and noise)
-    g = torch.Generator(device=dev)
-    g.manual_seed(5)
-    draw_ms = cuda_ms(torch, lambda: link.draw(g, 2048), 10)
-    prof = profile_call(torch, lambda: rf_mesh(1, 0), step_mesh,
-                        "Path P MCS-4 round over the mesh")
     # physics through the mesh
     qpsk = M.qam_constellation(4).astype(np.complex64)
 
@@ -2691,10 +2404,8 @@ def dp_path(torch, report, link, main_res, uncoded_2db, k7):
           f"{unc.bers.tolist()} vs erfc {theory.tolist()}; K=7 soft 2 dB "
           f"{cod.bers[0]:.3e} vs uncoded {uncoded_2db:.3e}; MCS-4 errors "
           f"{errs}; link_performance_device {lpd.tolist()} (mesh=None "
-          f"{lpd_solo.tolist()}); round {step_mesh * 1e3:.3f} ms over the "
-          f"mesh, {step_solo * 1e3:.3f} ms without, the draw "
-          f"{draw_ms:.4f} ms; process group and "
-          f"mesh {distributed_init_s:.2f} s", flush=True)
+          f"{lpd_solo.tolist()}); process group and mesh "
+          f"{distributed_init_s:.2f} s", flush=True)
     if not np.allclose(unc.bers, theory, rtol=0.25):
         fail("Path P: uncoded QPSK BER over the mesh does not match erfc")
     if not (cod.bit_errors[0] > 0 and cod.bers[0] * 10 < uncoded_2db):
@@ -2707,9 +2418,6 @@ def dp_path(torch, report, link, main_res, uncoded_2db, k7):
         "world": info, "process_group_and_mesh_s": distributed_init_s,
         "bit_errors": res.bit_errors.tolist(), "ber": res.bers.tolist(),
         "per_round": per_round, "launches": launches,
-        "round_ms_mesh": step_mesh * 1e3, "round_ms_no_mesh": step_solo * 1e3,
-        "draw_ms": draw_ms,
-        "info_bits_per_s": 2048 * 1200 / step_mesh, "profile": prof,
         "uncoded_qpsk_ber": unc.bers.tolist(), "k7_soft_2db_ber":
             float(cod.bers[0]), "mcs4_errs": {str(k): v for k, v in
                                               errs.items()},
@@ -2908,13 +2616,9 @@ def stream_path(torch, report, k7):
                                 L=W + L + tb)[W:W + L]
     ber = float((bits != msg[0]).float().mean())
     uncoded = float(erfc(np.sqrt(10 ** 0.3)) / 2)
-    v_step = host_step_s(torch, lambda: vstream(llr))
-    v_prof = profile_call(torch, lambda: vstream(llr), v_step,
-                          "Path Q Viterbi stream L=2^20")
     print(f"Path Q Viterbi stream L=2^20 K=7 soft Eb/N0 3 dB: BER {ber:.3e} "
           f"(uncoded {uncoded:.3e}); equal to the decode of its window: "
-          f"{bool(torch.equal(bits, ref))}; {v_step * 1e3:.3f} ms, "
-          f"{L / v_step:.4g} info bits/s; launches {launches}", flush=True)
+          f"{bool(torch.equal(bits, ref))}; launches {launches}", flush=True)
     if not torch.equal(bits, ref):
         fail("Path Q: the Viterbi stream differs from viterbi_decode_device")
     if not (0 < ber * 10 < uncoded):
@@ -2976,9 +2680,6 @@ def stream_path(torch, report, k7):
         launches.setdefault("bcjr_appdiff", {})
         launches["bcjr_appdiff"]["Q"] = launches["bcjr_appdiff"].get(
             "Q", 0) + n_k3
-        step = host_step_s(torch, lambda: tstream(frames[0][1], mode))
-        prof = profile_call(torch, lambda: tstream(frames[0][1], mode), step,
-                            f"Path Q turbo stream {mode}")
         # every K3 call and MAP pass of one decode, recorded
         rec = record_calls(ST, ("bcjr_appdiff", "_map_pass"),
                            lambda: tstream(frames[0][1], mode))
@@ -3002,17 +2703,14 @@ def stream_path(torch, report, k7):
                        "k3_mismatches": k3_tally.mismatches - before,
                        "k3_bit_diffs": k3_tally.bit_diffs - bits_before,
                        "renorm_every": ST.STREAM_RENORM_EVERY,
-                       "step_s": step, "info_bits_per_s": T / step,
-                       "profile": prof, "vs_bcjr_masked": vs_masked}
+                       "vs_bcjr_masked": vs_masked}
         print(f"Path Q turbo stream L=6144 {mode}, 8 iterations, Eb/N0 "
               f"2 dB: {errs} errors in {len(frames)} frames; K3 {n_k3} "
               f"launches; K3 against its plain version on {len(calls)} MAP "
               f"passes (renorm_every {ST.STREAM_RENORM_EVERY}): "
               f"{k3_tally.mismatches - before} mismatches, "
               f"{k3_tally.bit_diffs - bits_before} values differing in any "
-              f"bit; every pass against _bcjr_masked {vs_masked}; "
-              f"{step * 1e3:.3f} ms a frame (41.9-47.5 ms unrenormalised, "
-              f"PERF.md's earlier reading on an H100 at 700 W)", flush=True)
+              f"bit; every pass against _bcjr_masked {vs_masked}", flush=True)
         if errs / (len(frames) * T) >= 1e-4:
             fail(f"Path Q: turbo stream {mode} BER {errs / (len(frames) * T)}")
         if n_k3 != 16 * len(frames) or len(calls) != 16:
@@ -3028,8 +2726,7 @@ def stream_path(torch, report, k7):
                  f"1e-5 (1 + |x|) or 4 eps Gamma ({mode}): {vs_masked}")
     report["path_q"] = {
         "viterbi": {"L": L, "ber": ber, "uncoded_ber": uncoded,
-                    "step_s": v_step, "info_bits_per_s": L / v_step,
-                    "profile": v_prof, "k1_k2_4096": {
+                    "k1_k2_4096": {
                         k: {"compared": t.compared,
                             "mismatches": t.mismatches}
                         for k, t in tally.items()},
@@ -3272,42 +2969,25 @@ def tp_path(torch, report, codes, ldpc_link):
     bits, noise = ldpc_link.draw(g, 512)
     llr = ldpc_link.receive(bits, noise, float(ldpc_link.noise_std_fn(10.0)))
     # the link's LLRs are in the QC codeword order, which is H's order
-
-    def ldpc_run():
-        return L.ldpc_bp_decode_sharded(llr, dense, "MSA", 15, mesh)
-
-    d1, o1 = ldpc_run()
+    d1, o1 = L.ldpc_bp_decode_sharded(llr, dense, "MSA", 15, mesh)
     d2, o2 = L.ldpc_bp_decode_device(llr, dense, "MSA", 15, backend="dense")
     errs = int((d1[:, :972] != bits).sum())
     raw = int((torch.signbit(llr)[:, :972].to(torch.int8) != bits).sum())
-    step = host_step_s(torch, ldpc_run)
     out["ldpc_1944_b512_msa15"] = {
         "equal_to_dense": bool(torch.equal(d1, d2) and torch.equal(o1, o2)),
-        "info_errors": errs, "channel_info_errors": raw, "step_s": step,
-        "info_bits_per_s": 512 * 972 / step,
-        "profile": profile_call(torch, ldpc_run, step,
-                                "Path R ldpc_bp_decode_sharded 1944")}
+        "info_errors": errs, "channel_info_errors": raw}
     # DVB-S2-class, Z-sharded
     pd, make = codes["dvbs2-16200-1/2"]
     rng = np.random.RandomState(131)
     cw = make(512, rng)
     qllr = torch.as_tensor(bpsk_llr(cw, 2.0, 0.5, rng), device=dev)
-
-    def qc_run():
-        return Q.qc_bp_decode_sharded(qllr, pd, "MSA", 15, mesh)
-
-    a = qc_run()
+    a = Q.qc_bp_decode_sharded(qllr, pd, "MSA", 15, mesh)
     b = Q.qc_bp_decode_device(qllr, pd, "MSA", 15, backend="torch")
-    step = host_step_s(torch, qc_run, reps=2)
     out["qc_dvbs2_16200_b512_msa15"] = {
         "equal_to_plain_core": bool(torch.equal(a[0], b[0])
                                     and torch.equal(a[1], b[1])),
         "errors": int((a[0].cpu().numpy() != cw).sum()),
-        "channel_errors": int((np.signbit(qllr.cpu().numpy()) != cw).sum()),
-        "step_s": step, "info_bits_per_s": 512 * pd["k_bits"] / step,
-        "profile": profile_call(torch, qc_run, step,
-                                "Path R qc_bp_decode_sharded DVB-S2",
-                                steps=1)}
+        "channel_errors": int((np.signbit(qllr.cpu().numpy()) != cw).sum())}
     # the sharded FIR on 2^22 samples with Path H's taps
     _, taps = rrcosfilter(32, 0.35, 1.0, 4.0)
     taps = torch.as_tensor((taps / np.sqrt(np.sum(taps ** 2))).astype(
@@ -3315,16 +2995,10 @@ def tp_path(torch, report, codes, ldpc_link):
     xs = torch.as_tensor((rng.randn(1 << 22) + 1j * rng.randn(1 << 22))
                          .astype(np.complex64), device=dev)
     sp = make_mesh(axis_name="sp")
-
-    def fir_run():
-        return FIR.sharded_fir_filter(xs, taps, sp)
-
-    y = fir_run()
+    y = FIR.sharded_fir_filter(xs, taps, sp)
     want = FIR.fir_filter(xs, taps, "full")[:1 << 22]
     rel = float((y - want).abs().max() / want.abs().max())
-    step = host_step_s(torch, fir_run)
-    out["fir_2p22_rrc"] = {"max_rel_err": rel, "step_s": step,
-                           "msamples_per_s": (1 << 22) / step / 1e6}
+    out["fir_2p22_rrc"] = {"max_rel_err": rel}
     # the pipeline: four link stages composed into one (world size 1)
     stages = [lambda w: torch.stack([2.0 * w[1] - 1.0, w[1]]),
               lambda w: torch.stack([w[0] * 0.9, w[1]]),
@@ -3345,9 +3019,7 @@ def tp_path(torch, report, codes, ldpc_link):
                                                                     serial)),
                                "decisions_exact": bool(torch.equal(
                                    piped[:, 0], bits_w))}
-    brief = {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
-             for k, v in out.items()}
-    print(f"Path R: {json.dumps(brief)}", flush=True)
+    print(f"Path R: {json.dumps(out)}", flush=True)
     if not out["ldpc_1944_b512_msa15"]["equal_to_dense"]:
         fail("Path R: ldpc_bp_decode_sharded differs from the dense decode")
     if not errs < raw:
@@ -3379,8 +3051,8 @@ def lte_path(torch, report, tally):
     launch; errs(35 dB) == 0 < errs(5 dB); every K3 call of one step held
     to its plain version on its own inputs, and K3 at both shapes of
     ``LTE_K3`` on random inputs (each history placement that fits), into
-    ``tally``; the step timed and profiled, K3 at the pass shape timed
-    beside its bound.  Returns {kernel: {path: launches}}."""
+    ``tally``; K3 at the pass shape timed beside its bound.  Returns
+    {kernel: {path: launches}}."""
     from commpy_tpu_torch.kernels import bcjr as BK
     from commpy_tpu_torch.kernels import demap as DK
     from commpy_tpu_torch.models.device_links import make_lte_turbo_link
@@ -3467,16 +3139,13 @@ def lte_path(torch, report, tally):
           f"{k3['plain_ms']:.1f} ms; {k3['plan_form']} form, history in "
           f"{k3['plan_hist']} memory), "
           f"bound {k3['bound_ms']:.4f} ms by {k3['bound_by']}", flush=True)
-    timing = time_link(torch, link, F, snr, 22, "Path LTE")
-    require_kernels(timing, "Path LTE", ("bcjr_kernel",
-                                         "demap_joint_kernel"))
     report["path_lte"] = {"bit_errors": res.bit_errors.tolist(),
                           "bits_sent": res.bits_sent.tolist(),
                           "ber": res.bers.tolist(), "errs_35db": e35,
                           "errs_5db": e5, "launches": n_k3,
                           "demap_joint_launches": n_k6,
                           "lane_launches": n_lane, "k3_own_calls": own,
-                          "k3": k3, "timing": timing}
+                          "k3": k3}
     return {"bcjr_appdiff": {"LTE": n_k3}}
 
 
@@ -4000,11 +3669,9 @@ def main():
     lap("examples")
     # ---- timing -------------------------------------------------------
     timings = {}
-    tb_inputs = {}
     for shape, r in (("mcs4", r_mcs4), ("bench", r_bench)):
         B, T, n = r.shape
         dec, best = K.acs_forward(r, C7)
-        tb_inputs[shape] = (dec, best)
         # the back-steps a merge-aware walk takes on these decisions, and
         # its bits once more
         bits_m, steps_m = K.traceback_merge_plain(dec, best, 64, 30)
@@ -4062,19 +3729,6 @@ def main():
     dec_ms = cuda_ms(torch, lambda: viterbi_decode_device(
         bench_llr, k7, 30, "soft", L=1024), 10)
     decoded_bps = 2048 * 1024 / (dec_ms * 1e-3)
-    ns = float(link.noise_std_fn(12.0))
-    gen.manual_seed(5)
-    link.link_step(gen, 2048, ns)
-    torch.cuda.synchronize()
-    reps = 5
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        link.link_step(gen, 2048, ns)
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / reps
-    link_bps = 2048 * 1200 / step_s
-    report["mcs4_link_profile"] = profile_link_step(torch, link, gen, ns,
-                                                    step_s)
     report["timings"] = timings
     # K4 and K5 at the JAX bench shapes (benchmarks/bench_all.py): random
     # LLRs, on which no frame converges
@@ -4238,21 +3892,6 @@ def main():
                   f"{t['sweeps_mean']:.2f}), bound {t['k5_bound_ms']:.4f} ms",
                   flush=True)
     report["path_b_timing"] = path_b_t
-    ns_a = float(ldpc_link.noise_std_fn(10.0))
-    gen.manual_seed(7)
-    ldpc_link.link_step(gen, 512, ns_a)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        ldpc_link.link_step(gen, 512, ns_a)
-    torch.cuda.synchronize()
-    step_a = (time.perf_counter() - t0) / reps
-    ldpc_bps = 512 * 972 / step_a
-    report["path_a_link_profile"] = profile_link_step(
-        torch, ldpc_link, gen, ns_a, step_a, frames=512,
-        label="802.11n LDPC 1944 16-QAM")
-    report["80211n_ldpc_link_step_s"] = step_a
-    report["80211n_ldpc_link_info_bits_per_s"] = ldpc_bps
     # K3 at the three bench shapes, as the turbo loop calls it (combined
     # w-streams, posterior out, log-MAP, f32)
     for key, (T, R, variant) in K3_BENCH.items():
@@ -4340,26 +3979,9 @@ def main():
         turbo_rates[key] = x.numel() / (ms * 1e-3)
         print(f"turbo decoder {key}: {ms:.3f} ms, "
               f"{turbo_rates[key]:.4g} info bits/s", flush=True)
-    ns_c = float(turbo.noise_std_fn(snr_c))
-    gen.manual_seed(10)
-    turbo.link_step(gen, 256, ns_c)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        turbo.link_step(gen, 256, ns_c)
-    torch.cuda.synchronize()
-    step_c = (time.perf_counter() - t0) / 3
-    turbo_bps = 256 * 6144 / step_c
-    report["path_c_link_profile"] = profile_link_step(
-        torch, turbo, gen, ns_c, step_c, frames=256,
-        label="turbo L=6144 NII (128, 0)")
-    report["turbo_link_step_s"] = step_c
-    report["turbo_link_info_bits_per_s"] = turbo_bps
     report["turbo_decoder_info_bits_per_s"] = turbo_rates
     report["decoder_bench_ms"] = dec_ms
     report["decoded_info_bits_per_s"] = decoded_bps
-    report["mcs4_link_step_s"] = step_s
-    report["mcs4_link_info_bits_per_s"] = link_bps
 
     kernels = []
     for name, key, replaces in (
@@ -4529,136 +4151,10 @@ def main():
                         "cells)"})
     report["kernels"] = kernels
     lap("timing")
-    if "--ab" in sys.argv:
-        other_root = sys.argv[sys.argv.index("--ab") + 1]
-        OK, OQ, OM = load_other_port(other_root)
-        meta4 = (p1944["Z"], p1944["Nb"], Q.qc_rows(p1944))
-        ok4 = dict(algorithm="MSA", n_iters=15, meta=meta4)
-        ok4l = dict(algorithm="MSA", n_iters=8, meta=meta4,
-                    schedule="layered")
-        links = {"mcs4": (link, OM.wifi80211_device_link(
-                     4, frame_bits=1200, device="cuda"), 2048, ns),
-                 "path_a": (ldpc_link, OM.wifi80211n_ldpc_link(1944, 16),
-                            512, ns_a)}
-
-        def step(lk, frames, noise):
-            # both trees draw the same bits and noise: equal error counts
-            g = torch.Generator(device=dev)
-            g.manual_seed(21)
-            return (lk.link_step(g, frames, noise),)
-        report["ab"] = {"other": other_root, "card": card, **ab_compare(
-            torch, {
-                "k1_mcs4": ("acs_", lambda: K.acs_forward(r_mcs4, C7),
-                            lambda: OK.acs_forward(r_mcs4, C7)),
-                "k1_bench": ("acs_", lambda: K.acs_forward(r_bench, C7),
-                             lambda: OK.acs_forward(r_bench, C7)),
-                **{f"k2_{k}": ("traceback",
-                               lambda v=v: (K.traceback(*v, 64, 30),),
-                               lambda v=v: (OK.traceback(*v, 64, 30),))
-                   for k, v in tb_inputs.items()},
-                "k4_flooding15": ("qc_bp_resident_kernel",
-                                  lambda: QK.qc_bp_resident(x4, **ok4),
-                                  lambda: OQ.qc_bp_resident(x4, **ok4)),
-                "k4_layered8": ("qc_bp_resident_kernel",
-                                lambda: QK.qc_bp_resident(x4l, **ok4l),
-                                lambda: OQ.qc_bp_resident(x4l, **ok4l)),
-                **{f"{k}_link_step": (None, lambda v=v: step(v[0], *v[2:]),
-                                      lambda v=v: step(v[1], *v[2:]))
-                   for k, v in links.items()},
-            })}
-        lap("ab")
     report["phase_s"] = phase_s
     report["seconds"] = time.perf_counter() - t_start
-    print(json.dumps({
-        "decoded_info_bits_per_s": decoded_bps,
-        "decoder_config": "K=7 soft, B=2048, L=1024, tb_depth=30",
-        "mcs4_link_info_bits_per_s": link_bps,
-        "link_config": "802.11 MCS-4, frame_bits=1200, F=2048, 12 dB",
-        "80211n_ldpc_link_info_bits_per_s": ldpc_bps,
-        "ldpc_link_config": "802.11n LDPC (1944, 972), 16-QAM, MSA "
-                            "flooding-15, F=512, 10 dB",
-        "turbo_decoder_info_bits_per_s": turbo_rates,
-        "turbo_decoder_config": "4-state RSC (1, 7/5), log-MAP, 8 "
-                                "iterations, randn frames, nv 0.5",
-        "turbo_link_info_bits_per_s": turbo_bps,
-        "turbo_link_config": "rate 1/3, L=6144, RandInterlv(6144, 0), NII "
-                             "(128, 0), F=256, Eb/N0 1.0 dB",
-        "mimo_ofdm_link_info_bits_per_s": {
-            k: report[k]["timing"]["info_bits_per_s"]
-            for k in ("path_d", "path_e", "path_f", "path_g")},
-        "mimo_ofdm_link_configs": {
-            "path_d": "K-best(16) 4x4 16-QAM uncoded, F=2048, 16.02 dB",
-            "path_e": "best-first(32) 4x4 16-QAM + WiMAX LDPC (1440, 720) "
-                      "MSA-15, F=512, 18 dB",
-            "path_f": "OFDM 2x2 16-QAM K-best(8) + K=7 soft Viterbi, "
-                      "F=2048, 14 dB",
-            "path_g": "OFDM 802.11n LDPC (1944, 1/2) 16-QAM, 4-tap "
-                      "Rayleigh, LS CSI, F=512, 13 dB"},
-        "dsp_code_link_info_bits_per_s": {
-            "path_h": report["path_h"]["timing"]["info_bits_per_s"],
-            "path_i": report["path_i"]["timing"]["info_bits_per_s"],
-            "path_j": report["path_j"]["timing"]["info_bits_per_s"],
-            "path_k": {d: t["info_bits_per_s"]
-                       for d, t in report["path_k"]["timing"].items()},
-            "path_l": report["path_l"]["timing"]["info_bits_per_s"]},
-        "dsp_code_link_configs": {
-            "path_h": "RRC (sps 4, span 8, 0.35) 16-QAM + K=7 soft Viterbi, "
-                      "max-log, F=2048, 12 dB",
-            "path_i": "ISI H3 + MMSE-21 QPSK + K=7 soft Viterbi, F=2048, "
-                      "8 dB",
-            "path_j": "BCH (31,21) BPSK Chase-4 link, F=4096, 4 dB",
-            "path_k": "RS(204,188) fcr=0 256-QAM link, hard and GMD, "
-                      "F=2048, 15 dB",
-            "path_l": "DVB-S2 BCH t=12 + LDPC (16200, 1/2) QPSK MSA-30 "
-                      "layered, F=512, 5 dB"},
-        "decoder_info_bits_per_s": {
-            "bch_dvbs2_16200_t12":
-                report["path_j"]["bch_dvbs2_16200_t12"]["info_bits_per_s"],
-            "tpc_31_21_sq_chase4":
-                report["path_j"]["tpc_31_21_sq_chase4"]["info_bits_per_s"],
-            "rs_255_223_t16":
-                report["path_k"]["rs_255_223_t16"]["info_bits_per_s"]},
-        "equalize_mmse_t31_l5_msamples_per_s":
-            report["equalize_mmse_t31_l5"]["msamples_per_s"],
-        "polar_idd_link_info_bits_per_s": {
-            "path_m": report["path_m"]["timing"]["info_bits_per_s"],
-            "path_n": report["path_n"]["timing"]["info_bits_per_s"]},
-        "polar_idd_link_configs": {
-            "path_m": "polar (1024, 512) CRC-11 QPSK SCL-8 (unrolled), "
-                      "F=512, Eb/N0 2 dB",
-            "path_n": "IDD K-best(16) 4x4 16-QAM + WiMAX LDPC (1440, 720) "
-                      "MSA-15, n_it=1, F=512, 18 dB"},
-        "polar_decoder_info_bits_per_s": {
-            k: v["info_bits_per_s"]
-            for k, v in report["path_m"]["decoders"].items()},
-        "parallel_paths": {
-            "path_p_round_ms": report["path_p"]["round_ms_mesh"],
-            "path_p_info_bits_per_s": report["path_p"]["info_bits_per_s"],
-            "path_q_viterbi_stream_info_bits_per_s":
-                report["path_q"]["viterbi"]["info_bits_per_s"],
-            "path_q_turbo_stream_info_bits_per_s": {
-                m: t["info_bits_per_s"]
-                for m, t in report["path_q"]["turbo"].items()},
-            "path_r_info_bits_per_s": {
-                k: v["info_bits_per_s"] for k, v in report["path_r"].items()
-                if "info_bits_per_s" in v},
-            "path_r_fir_msamples_per_s":
-                report["path_r"]["fir_2p22_rrc"]["msamples_per_s"]},
-        "parallel_configs": {
-            "path_p": "MCS-4 F=2048 12 dB, montecarlo_ber(mesh=make_mesh()), "
-                      "world 1, NCCL",
-            "path_q": "Viterbi stream L=2^20 K=7 soft BPSK Eb/N0 3 dB; turbo "
-                      "stream L=6144 RSC (1, 7/5) 8 it Eb/N0 2 dB",
-            "path_r": "ldpc sharded 802.11n 1944 B=512 MSA-15; QC sharded "
-                      "DVB-S2-class 16200 B=512 MSA flooding-15; FIR 2^22"},
-        "compatible_api": {
-            "wifi80211_mcs4_12db_ber": report["path_o"]["wifi80211"]["ber"],
-            "wifi80211_ms_per_chunk":
-                report["path_o"]["wifi80211"]["ms_per_chunk"],
-            "device_link_ber": report["path_o"]["wifi80211"][
-                "device_link_ber"]},
-        "card": card, "seconds": report["seconds"], "phase_s": phase_s}),
-        flush=True)
+    print(f"chip_smoke: {report['seconds']:.1f} s; by phase "
+          f"{json.dumps(phase_s)}", flush=True)
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

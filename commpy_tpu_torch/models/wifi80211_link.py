@@ -44,8 +44,12 @@ def wifi80211_device_link(mcs: int, frame_bits: int = 1200,
     """Build the batched 802.11 link for an MCS index (0-9).
 
     ``frame_bits`` must make the punctured codeword fill whole modulation
-    symbols (1200 works for every MCS).  ``scramble_seed`` (non-zero 7-bit
-    int) enables the frame-synchronous data scrambler.
+    symbols: the 2 * ``frame_bits`` coded bits that the MCS's puncturing
+    pattern keeps must be a multiple of log2(M), else ``ValueError``.
+    1200 fits every MCS but 6 (64-QAM at rate 3/4: 1600 coded bits, not
+    a whole number of 6-bit symbols); 3600 fits all ten.
+    ``scramble_seed`` (non-zero 7-bit int) enables the frame-synchronous
+    data scrambler.
     """
     m, use_psk, coding = WIFI_MCS_TABLE[mcs]
     # (133,171) are OCTAL in the standard: 0o133 = 91, 0o171 = 121.  Read

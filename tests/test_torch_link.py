@@ -108,6 +108,13 @@ def test_link_error_free_at_high_snr(mcs, low_snr_db):
     assert e35 == 0 < e_low
 
 
+def test_link_rejects_a_frame_that_leaves_a_partial_symbol():
+    # MCS 6, 64-QAM at rate 3/4: 1200 bits puncture to 1600 coded bits,
+    # not a whole number of 6-bit symbols
+    with pytest.raises(ValueError, match="whole symbols"):
+        wifi80211_device_link(6, frame_bits=1200, device="cpu")
+
+
 def _uncoded_qpsk_step():
     qpsk = PM.qam_constellation(4).astype(np.complex64)
 
