@@ -4,7 +4,12 @@ Counterpart of ``commpy_tpu/parallel/montecarlo.py``.  The reference's
 serial ``while bit_send < send_max and bit_err < err_min`` loop
 (links.py:313-338) becomes rounds: each round simulates
 ``frames_per_round`` frames at every still-active SNR point, and the host
-only takes the stopping decision between rounds.
+only takes the stopping decision between rounds.  While ``montecarlo_ber``
+calls its ``round_fn`` it publishes its mask of active points in a context
+variable, which reaches the round through any ``(seed, rnd)`` wrapper: the
+round builds generators for, simulates and tallies only those points, and
+reads 0 at the others.  A round called outside a sweep simulates every
+point.
 
 Randomness: the frames of round r at SNR index i are drawn from a
 ``torch.Generator`` on the device seeded from (seed, r, i), so a resumed
@@ -24,6 +29,7 @@ mesh, and their read-back: the round's one sync).
 """
 from __future__ import annotations
 
+import contextvars
 import json
 import logging
 import os
@@ -41,6 +47,10 @@ from .mesh import DeviceMesh, axis_index, axis_size, check_axis, psum
 __all__ = ["MonteCarloResult", "montecarlo_ber", "make_round_fn"]
 
 logger = logging.getLogger("commpy_tpu_torch.montecarlo")
+
+# the running sweep's active points ([n_snr] bool), None outside a sweep
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
+    "commpy_tpu_torch.montecarlo.active", default=None)
 
 
 @dataclass
@@ -69,12 +79,17 @@ def make_round_fn(link_step: Callable, noise_stds: Sequence[float],
 
     ``link_step(generator, n_frames, noise_std) -> bit errors`` (a scalar
     tensor).  All SNR points of a round are queued on the device and read
-    back with one synchronisation.  With a ``mesh`` (this rank's, the
-    frame axis split over its ``axis_name``), ``link_step`` must also take
-    ``rows``, a slice of the frames: it draws all ``n_frames`` and
-    simulates and counts only those rows (as every
-    :class:`~commpy_tpu_torch.models.DeviceLink` does); the counts are
-    summed over the ranks.
+    back with one synchronisation.  Called by :func:`montecarlo_ber`
+    (directly or through a wrapper), the round simulates only the points
+    that the sweep still counts, each from its own generator, and reads 0
+    at the points that have stopped; called outside a sweep, it simulates
+    every point.
+
+    With a ``mesh`` (this rank's, the frame axis split over its
+    ``axis_name``), ``link_step`` must also take ``rows``, a slice of the
+    frames: it draws all ``n_frames`` and simulates and counts only those
+    rows (as every :class:`~commpy_tpu_torch.models.DeviceLink` does); the
+    counts are summed over the ranks.
     """
     dev = resolve_device(device)
     noise_stds = [float(np.float32(ns)) for ns in noise_stds]
@@ -91,18 +106,30 @@ def make_round_fn(link_step: Callable, noise_stds: Sequence[float],
         rows = slice(r * per, (r + 1) * per)
 
     def round_fn(seed: int, rnd: int) -> np.ndarray:
+        n_snr = len(noise_stds)
+        active = _ACTIVE.get()
+        if active is None:
+            points = list(range(n_snr))
+        elif active.shape != (n_snr,):
+            raise ValueError(
+                f"the sweep's mask of active points has shape "
+                f"{active.shape}; this round_fn has {n_snr} SNR points")
+        else:
+            points = np.flatnonzero(active).tolist()
+        out = np.zeros(n_snr, np.int64)
         with span("mc.round"):
             with span("mc.seed"):
-                gens = [_round_generator(seed, rnd, i, dev)
-                        for i in range(len(noise_stds))]
+                gens = [_round_generator(seed, rnd, i, dev) for i in points]
             shard = {} if rows is None else {"rows": rows}
-            errs = [link_step(g, frames_per_round, ns, **shard)
-                    for g, ns in zip(gens, noise_stds)]
+            errs = [link_step(g, frames_per_round, noise_stds[i], **shard)
+                    for g, i in zip(gens, points)]
             with span("mc.tally"):
                 errs = torch.stack(errs)
                 if rows is not None:
+                    # every rank holds the same mask: the all-reduces match
                     errs = psum(errs.to(torch.int64), mesh)
-                return errs.cpu().numpy().astype(np.int64)
+                out[points] = errs.cpu().numpy()
+                return out
 
     round_fn.frames_per_round = frames_per_round
     round_fn.noise_stds = np.asarray(noise_stds)
@@ -129,8 +156,8 @@ def montecarlo_ber(
     """Run the BER sweep with err_min / send_max early stopping.
 
     An SNR point stops accumulating once it has ``err_min`` bit errors or
-    ``send_max`` sent bits; finished points are frozen (reference
-    links.py:309-341, at round granularity).
+    ``send_max`` sent bits; finished points are frozen and no longer
+    simulated (reference links.py:309-341, at round granularity).
 
     Parameters
     ----------
@@ -143,7 +170,8 @@ def montecarlo_ber(
         exists.  With a mesh, rank 0 reads and writes it and hands what it
         read to the other ranks.
     round_fn : optional prebuilt :func:`make_round_fn` result for this
-        configuration.
+        configuration, or a ``(seed, rnd)`` wrapper that calls one; the
+        sweep's mask of active points reaches it through the wrapper.
     device : where the frames are simulated (default ``"cuda"``).
     mesh, axis_name : split each round's frames over the ranks of
         ``mesh`` (see :func:`make_round_fn`); every rank calls the sweep
@@ -201,7 +229,11 @@ def montecarlo_ber(
         for r in range(start_round, max_rounds):
             if not active.any():
                 break
-            errs = round_fn(seed, r)
+            token = _ACTIVE.set(active.copy())
+            try:
+                errs = round_fn(seed, r)
+            finally:
+                _ACTIVE.reset(token)
             tot_err[active] += errs[active]
             tot_bits[active] += bits_per_round
             rounds = r + 1

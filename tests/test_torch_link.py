@@ -175,6 +175,150 @@ def test_montecarlo_early_stop_and_round_fn_checks():
                        round_fn=rf, device="cpu")
 
 
+def _counting_step(calls):
+    """A fake ``link_step``: its bit errors are about ten times the noise
+    std plus a draw from the round's generator; each call's noise std is
+    appended to ``calls``."""
+
+    def step(gen, frames, noise_std):
+        calls.append(float(noise_std))
+        extra = torch.randint(0, 3, (), generator=gen, dtype=torch.int32)
+        return extra + int(round(10 * noise_std))
+
+    return step
+
+
+# noise std = the "SNR": the points stop after 2, 3, 5 and 10 rounds
+SWEEP = dict(snrs_db=[8.0, 4.0, 2.0, 1.0], noise_std_fn=float, frame_bits=10,
+             seed=2**31 + 77, frames_per_round=4, err_min=100,
+             device="cpu")
+
+
+def _sweep_from_full_rounds(max_rounds, send_max=None):
+    """The sweep recomputed from whole rounds called outside any sweep:
+    (bit errors, bits sent, rounds, the points active in each round)."""
+    stds = [float(s) for s in SWEEP["snrs_db"]]
+    rf = make_round_fn(_counting_step([]), stds, SWEEP["frames_per_round"],
+                       device="cpu")
+    per_round = SWEEP["frames_per_round"] * SWEEP["frame_bits"]
+    send_max = per_round * max_rounds if send_max is None else send_max
+    errs = np.zeros(len(stds))
+    sent = np.zeros(len(stds))
+    ran = []
+    for r in range(max_rounds):
+        active = np.flatnonzero((errs < SWEEP["err_min"]) & (sent < send_max))
+        if not len(active):
+            break
+        full = rf(SWEEP["seed"], r)
+        assert (full > 0).all()
+        errs[active] += full[active]
+        sent[active] += per_round
+        ran.append(active.tolist())
+    return errs, sent, len(ran), ran
+
+
+def _calls_of(ran):
+    stds = [float(s) for s in SWEEP["snrs_db"]]
+    return [stds[i] for active in ran for i in active]
+
+
+def test_montecarlo_simulates_only_the_points_it_still_counts():
+    errs, sent, rounds, ran = _sweep_from_full_rounds(12)
+    # the points stop at different rounds, all before max_rounds
+    assert [len([a for a in ran if i in a]) for i in range(4)] == \
+        [2, 3, 5, 10] and rounds == 10
+    calls = []
+    res = montecarlo_ber(_counting_step(calls), max_rounds=12, **SWEEP)
+    assert calls == _calls_of(ran)
+    np.testing.assert_array_equal(res.bit_errors, errs)
+    np.testing.assert_array_equal(res.bits_sent, sent)
+    assert res.rounds == rounds
+    # send_max stops the last point first at round 6
+    errs6, sent6, rounds6, ran6 = _sweep_from_full_rounds(12, 240)
+    calls.clear()
+    res = montecarlo_ber(_counting_step(calls), max_rounds=12, send_max=240,
+                         **SWEEP)
+    assert calls == _calls_of(ran6) and res.rounds == rounds6 == 6
+    np.testing.assert_array_equal(res.bit_errors, errs6)
+    np.testing.assert_array_equal(res.bits_sent, sent6)
+
+
+def test_montecarlo_skips_stopped_points_through_a_wrapper():
+    errs, sent, rounds, ran = _sweep_from_full_rounds(12)
+    calls = []
+    stds = [float(s) for s in SWEEP["snrs_db"]]
+    rf = make_round_fn(_counting_step(calls), stds,
+                       SWEEP["frames_per_round"], device="cpu")
+    seen = []
+
+    def wrapper(s, r):
+        seen.append(r)
+        return rf(s, r)
+
+    res = montecarlo_ber(_counting_step([]), max_rounds=12, round_fn=wrapper,
+                         **SWEEP)
+    assert seen == list(range(rounds)) and calls == _calls_of(ran)
+    np.testing.assert_array_equal(res.bit_errors, errs)
+    np.testing.assert_array_equal(res.bits_sent, sent)
+    calls.clear()
+    montecarlo_ber(_counting_step([]), max_rounds=12,
+                   round_fn=lambda s, r: rf(s, r), **SWEEP)
+    assert calls == _calls_of(ran)
+    # outside a sweep the same round_fn simulates every point again
+    calls.clear()
+    full = rf(SWEEP["seed"], rounds - 1)
+    assert calls == stds and (full > 0).all()
+
+
+def test_montecarlo_round_fn_runs_every_point_after_a_failed_round():
+    calls = []
+    stds = [float(s) for s in SWEEP["snrs_db"]]
+    rf = make_round_fn(_counting_step(calls), stds,
+                       SWEEP["frames_per_round"], device="cpu")
+
+    def failing(s, r):
+        out = rf(s, r)
+        if r == 3:
+            raise RuntimeError("round 3 failed")
+        return out
+
+    with pytest.raises(RuntimeError, match="round 3 failed"):
+        montecarlo_ber(_counting_step([]), max_rounds=12, round_fn=failing,
+                       **SWEEP)
+    # rounds 0-3 ran: 4 + 4 + 3 + 2 points
+    assert len(calls) == 13
+    calls.clear()
+    rf(SWEEP["seed"], 3)
+    assert calls == stds
+
+
+def test_montecarlo_rejects_a_mask_of_another_length():
+    rf3 = make_round_fn(_counting_step([]), [8.0, 4.0, 2.0], 4, device="cpu")
+    with pytest.raises(ValueError, match="mask of active points"):
+        montecarlo_ber(_counting_step([]), max_rounds=2,
+                       round_fn=lambda s, r: rf3(s, r), **SWEEP)
+
+
+def test_montecarlo_resume_after_a_point_stopped(tmp_path):
+    errs, sent, rounds, ran = _sweep_from_full_rounds(12)
+    ckpt = str(tmp_path / "sweep.json")
+    calls = []
+    first = montecarlo_ber(_counting_step(calls), max_rounds=4,
+                           checkpoint_path=ckpt, **SWEEP)
+    # the first point stopped after round 1, before the checkpoint
+    assert first.rounds == 4 and first.bits_sent[0] < first.bits_sent[3]
+    assert calls == _calls_of(ran[:4])
+    calls.clear()
+    resumed = montecarlo_ber(_counting_step(calls), max_rounds=12,
+                             checkpoint_path=ckpt, **SWEEP)
+    assert calls == _calls_of(ran[4:])
+    straight = montecarlo_ber(_counting_step([]), max_rounds=12, **SWEEP)
+    assert resumed.rounds == straight.rounds == rounds
+    for res in (resumed, straight):
+        np.testing.assert_array_equal(res.bit_errors, errs)
+        np.testing.assert_array_equal(res.bits_sent, sent)
+
+
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")

@@ -178,6 +178,11 @@ mc = montecarlo_ber(qpsk_step, snrs, nsf, 200, seed=42, frames_per_round=64,
                     max_rounds=40, err_min=300, send_max=500_000,
                     device="cpu", mesh=mesh)
 res["mc_bers"], res["mc_rounds"] = mc.bers, np.asarray(mc.rounds)
+solo = montecarlo_ber(qpsk_step, snrs, nsf, 200, seed=42, frames_per_round=64,
+                      max_rounds=40, err_min=300, send_max=500_000,
+                      device="cpu")
+res["mc_sweeps"] = np.stack([
+    np.r_[m.bit_errors, m.bits_sent, m.rounds] for m in (mc, solo)])
 kw = dict(snrs_db=[2.0, 6.0], noise_std_fn=nsf, frame_bits=200, seed=11,
           frames_per_round=8, err_min=10 ** 9, device="cpu", mesh=mesh)
 straight = montecarlo_ber(qpsk_step, max_rounds=4, **kw)
@@ -203,7 +208,8 @@ out = {k: (v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
        for k, v in res.items()}
 # what is replicated must be the same on every rank
 for k in ("ldpc_MSA_dec", "ldpc_SPA_llr", "ldpc47_SPA_llr", "qc_MSA_llr",
-          "pipe_link", "round_conv_3_mesh", "mc_bers", "lpd_mesh"):
+          "pipe_link", "round_conv_3_mesh", "mc_bers", "mc_sweeps",
+          "lpd_mesh"):
     g = [torch.empty_like(torch.as_tensor(out[k])) for _ in range(D)]
     dist.all_gather(g, torch.as_tensor(out[k]))
     if any(not torch.equal(g[0], t) for t in g):
@@ -401,6 +407,15 @@ def test_mesh_montecarlo_meets_theory(runs, D):
                                erfc(np.sqrt(10 ** (snrs / 10) / 2)) / 2,
                                rtol=0.25)
     assert "multiple of the mesh size" in str(pout["fpr_error"])
+
+
+@pytest.mark.parametrize("D", DS)
+def test_mesh_sweep_equals_single_device_sweep(runs, D):
+    # the points stop at different rounds; the ranks skip the same ones
+    mesh, solo = runs[1][D][1]["mc_sweeps"]
+    np.testing.assert_array_equal(mesh, solo)
+    errs, sent, rounds = mesh[:5], mesh[5:10], mesh[10]
+    assert (errs[:3] >= 300).all() and len(set(sent)) > 1 and rounds > 1
 
 
 @pytest.mark.parametrize("D", DS)

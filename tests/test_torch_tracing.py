@@ -74,7 +74,8 @@ def test_span_records_a_user_annotation_under_the_profiler(tmp_path):
 
 def test_montecarlo_sweep_spans(tmp_path):
     """One sweep at 0 dB (stops after its first round) and 12 dB (runs to
-    ``max_rounds``): every round simulates both points."""
+    ``max_rounds``): round 0 simulates both points, rounds 1-2 only the
+    12 dB point, and every round has one ``mc.seed`` and one ``mc.tally``."""
     link = make_qcldpc_awgn_link(qc_params=PQ.ieee80211n_params(648, "1/2"),
                                  modulation_m=4, n_iterations=5,
                                  device="cpu")
@@ -87,14 +88,15 @@ def test_montecarlo_sweep_spans(tmp_path):
     sweeps = [s for s in spans if s[0] == "mc.sweep"]
     rounds = [s for s in spans if s[0] == "mc.round"]
     assert len(sweeps) == 1 and len(rounds) == res.rounds
-    for r in rounds:
+    for r, points in zip(rounds, (2, 1, 1)):
         assert _inside(spans, sweeps[0], "mc.round").count(r) == 1
         assert len(_inside(spans, r, "mc.seed")) == 1
         assert len(_inside(spans, r, "mc.tally")) == 1
-        assert len(_inside(spans, r, "link.draw")) == 2
-    assert len([s for s in spans if s[0] == "link.draw"]) == 2 * res.rounds
+        assert len(_inside(spans, r, "link.draw")) == points
+        assert len(_inside(spans, r, "link.encode")) == points
+    assert len([s for s in spans if s[0] == "link.draw"]) == 4
     order = [s[0] for s in spans if s[0] in ("link.draw", "link.encode")]
-    assert order == ["link.draw", "link.encode"] * (2 * res.rounds)
+    assert order == ["link.draw", "link.encode"] * 4
     draws = [s for s in spans if s[0] == "link.draw"]
     encodes = [s for s in spans if s[0] == "link.encode"]
     assert all(d[2] <= e[1] for d, e in zip(draws, encodes))
