@@ -150,14 +150,18 @@ Run from the root of a checkout:  python3 chip_smoke.py
    erring at 1 dB, K5 on a step's own LLRs at 5 and 1 dB against its
    plain version bit for bit, and the LDPC and BCH stages timed apart;
 13. (run after 12) Paths M-O: M, the polar (1024, 512) CRC-11 QPSK
-   SCL-8 link (the decoder specialised to the frozen mask) at F=512
+   SCL-8 link (its list decoder on K7, by its route) at F=512
    through ``montecarlo_ber`` at Eb/N0 2 dB, clean at 6 dB, erring at
    -1 dB, with fewer frame errors than SC on the plain code on the same
    draws at 2 dB, one-path SCL (scan and unrolled) decoding as SC, the SC
    (B=2048), scan SCL-8 (B=256) and unrolled SCL-8 (B=1024) decoders at
    the JAX bench's batches (CUDA events), each decoding a B=16 batch on
-   the card as on the host (every output); N, the IDD K-best(16) WiMAX
-   (1440, 720) MSA-15 link (one exchange) at F=512, its BER at 17/18/19
+   the card as on the host (every output); K7 on the benchmark's NR QPSK
+   link at F=4096 and Eb/N0 0, 1.5 and 2.5 dB equal to the unrolled
+   decoder in every payload bit (most frames failing the CRC on every
+   path at 0 dB), one K7 launch a decode and none on the plain route,
+   and K7 timed beside ``portbench/bounds_k7.py``; N, the IDD K-best(16)
+   WiMAX (1440, 720) MSA-15 link (one exchange) at F=512, its BER at 17/18/19
    dB within rtol 2 of (1.7e-1, 1e-1, 2.5e-3) and at most 1.5x each, K4
    launched twice a step and held to its plain version on the LLRs the
    loop hands its decoder and its decision; O, the CommPy-compatible API:
@@ -220,11 +224,13 @@ from portbench.bounds import (F32_INSTR_PER_S, F32_OPS_PER_S,  # noqa: F401
                               MSA_OPS_PER_EDGE, k1_bound, k2_bound)
 from portbench.bounds_k3 import (LSE2_FLOPS, SFU_OPS_PER_S,  # noqa: F401
                                  k3_bound, k3_bound_ms)
+from portbench.bounds_k7 import k7_bound, k7_bound_s
 
 SOURCE = "commpy_tpu_torch/kernels/csrc/viterbi_acs.cu"
 QC_SOURCE = "commpy_tpu_torch/kernels/csrc/qc_bp.cu"
 BCJR_SOURCE = "commpy_tpu_torch/kernels/csrc/bcjr.cu"
 DEMAP_SOURCE = "commpy_tpu_torch/kernels/csrc/demap.cu"
+POLAR_SOURCE = "commpy_tpu_torch/kernels/csrc/polar_scl.cu"
 MS_NOTE = ("ms: CUDA events around back-to-back wrapper calls, as for every "
            "kernel; device_ms: the kernel's own device time (torch.profiler), "
            "null where five profiles held no record of the kernel")
@@ -289,7 +295,8 @@ def ms_str(ms, digits=4):
 
 KERNEL_NAMES = ("acs_warp_kernel", "acs_forward_kernel", "traceback_kernel",
                 "qc_bp_resident_kernel", "qc_bp_streamed_kernel",
-                "bcjr_kernel_lanes", "bcjr_kernel", "demap_joint_kernel")
+                "bcjr_kernel_lanes", "bcjr_kernel", "demap_joint_kernel",
+                "polar_scl_kernel")
 
 
 def ptxas_report(paths):
@@ -1961,12 +1968,16 @@ def polar_path(torch, report):
     6 dB, errors at -1 dB, fewer frame errors than SC on the same draws at 2 dB,
     SCL with one path decoding as SC); the SC, scan SCL and unrolled SCL
     decoders at the bench's batches (CUDA events), each decoding a B=16
-    batch on the card as on the host CPU (full outputs).  Polar has no
-    kernel: nothing of K1-K5 runs here."""
+    batch on the card as on the host CPU (full outputs).  K7 (the list
+    decoder's kernel, which the SCL link's route takes) is held to the
+    unrolled decoder on the benchmark's NR QPSK link (:func:`k7_checks`).
+    Nothing of K1-K5 runs here."""
+    from commpy_tpu_torch.kernels import polar_scl as K7
     from commpy_tpu_torch.models import make_polar_awgn_link
     from commpy_tpu_torch.ops import polar as PP
 
     dev = torch.device("cuda")
+    K7.polar_scl.launches = 0
     plain = PP.polar_construct(1024, 512, design_snr_db=2.0)
     code = PP.polar_construct(1024, 512, crc="crc11", design_snr_db=2.0)
     link = make_polar_awgn_link(code=code, decoder="scl", list_size=8,
@@ -2070,7 +2081,84 @@ def polar_path(torch, report):
               f"{be}: {v['median_ms']:.2f} [{v['min_ms']:.2f} - "
               f"{v['max_ms']:.2f}] {v['launches']}"
               for be, v in sweep.items()), flush=True)
+    out["k7"] = k7_checks(torch, code)
+    out["k7"]["launches"] = K7.polar_scl.launches
     report["path_m"] = out
+
+
+def k7_checks(torch, code):
+    """K7 on the benchmark's link (``portbench/configs/
+    polar1024-crc11-qpsk.json``: the (1024, 512 + CRC11) code, NR QPSK,
+    SCL-8) at F = 4096 and three SNRs, Eb/N0 0, 1.5 and 2.5 dB: the link's
+    decode (its route, K7) equal to the unrolled decoder's, every payload
+    bit; one K7 launch a decode, none on the plain route (``backend=
+    'torch'``); at Eb/N0 0 dB most frames fail the CRC on every path.  K7
+    timed at the cell's batch (CUDA events, and the profiler) beside
+    ``bounds_k7``'s least time and the unrolled decoder's time."""
+    from commpy_tpu_torch.kernels import polar_scl as K7
+    from commpy_tpu_torch.models import make_polar_awgn_link
+    from commpy_tpu_torch.ops import modem as M
+    from commpy_tpu_torch.ops import polar as PP
+    from commpy_tpu_torch.ops.crc import crc_check_table
+
+    dev = torch.device("cuda")
+    F = 4096
+    link = make_polar_awgn_link(code=code, decoder="scl", list_size=8,
+                                constellation=M.nr_qpsk_constellation())
+    plain = PP.make_polar_scl_decoder_unrolled(code, list_size=8, full=True,
+                                               device=dev)
+    H = torch.as_tensor(crc_check_table(code.crc, code.k_total).astype(
+        np.float32), device=dev)
+    info = torch.as_tensor(code.info_positions, device=dev)
+    out = {"points": {}, "mismatches": 0, "compared": 0}
+    for k, ebn0 in enumerate((0.0, 1.5, 2.5)):
+        bits, llr = link_receive(torch, link, F, ebn0 + 10 * np.log10(2),
+                                 96 + k)
+        before = K7.polar_scl.launches
+        got = link.decode(llr)
+        torch.cuda.synchronize()
+        route = K7.polar_scl.launches - before
+        want, _, u_all = plain(llr)
+        plain_route = PP.polar_scl_decode(code, llr, list_size=8,
+                                          backend="torch")
+        torch.cuda.synchronize()
+        plain_launches = K7.polar_scl.launches - before - route
+        syn = torch.remainder(u_all[..., info].to(torch.float32) @ H, 2.0)
+        row = {"mismatches": int((got != want).sum()),
+               "plain_routes_differ": int((plain_route != want).sum()),
+               "frame_errors": int((want != bits).any(-1).sum()),
+               "all_paths_fail_crc": int((syn != 0).any(-1).all(-1).sum()),
+               "k7_launches": route, "plain_route_k7_launches":
+               plain_launches}
+        out["points"][f"ebn0_{ebn0}"] = row
+        out["mismatches"] += row["mismatches"]
+        out["compared"] += got.numel()
+        print(f"Path M K7 at Eb/N0 {ebn0} dB, F={F}: {row}", flush=True)
+        if row["mismatches"] or row["plain_routes_differ"]:
+            fail(f"Path M: K7 decodes differently from the unrolled "
+                 f"decoder at Eb/N0 {ebn0} dB: {row}")
+        if route != 1 or plain_launches != 0:
+            fail(f"Path M: {route} K7 launches on the link's decode, "
+                 f"{plain_launches} on the plain route (want 1 and 0)")
+    if out["points"]["ebn0_0.0"]["all_paths_fail_crc"] <= F // 2:
+        fail(f"Path M: at Eb/N0 0 dB only {out['points']['ebn0_0.0']} "
+             "frames fail the CRC on every path")
+    dec = PP.make_polar_scl_route(code, list_size=8, device=dev)
+    plain_dec = PP.make_polar_scl_decoder_unrolled(code, list_size=8,
+                                                   device=dev)
+    out["ms"] = cuda_ms(torch, lambda: dec(llr), 5)
+    out["device_ms"] = device_ms(torch, lambda: dec(llr), 3,
+                                 "polar_scl_kernel")
+    out["plain_ms"] = cuda_ms(torch, lambda: plain_dec(llr), 1)
+    out["bound"] = k7_bound(F, code.N, 8, code.k_total, code.K)
+    out["bound_ms"] = k7_bound_s(F, code.N, 8, code.k_total, code.K) * 1e3
+    out["bound_by"] = ("bytes" if out["bound"][0] / HBM_BYTES_PER_S >=
+                       out["bound"][1] / F32_INSTR_PER_S else "operations")
+    print(f"Path M K7 at F={F}: {out['ms']:.4f} ms a decode "
+          f"[{ms_str(out['device_ms'])}], bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']}), unrolled decoder {out['plain_ms']:.1f} ms",
+          flush=True)
+    return out
 
 
 def idd_path(torch, report):
@@ -3648,6 +3736,7 @@ def main():
     lap("paths_h_to_l")
     # ---- Paths M-O: polar, the IDD link, the CommPy-compatible API ------
     k6w.count("M", lambda: polar_path(torch, report))
+    path_launches["polar_scl"] = {"M": report["path_m"]["k7"]["launches"]}
     lap("path_m")
     add_launches(k6w.count("N", lambda: idd_path(torch, report), False))
     lap("path_n")
@@ -4149,6 +4238,23 @@ def main():
         "second_bound_ms": t6l["bound_ms"],
         "second_shape": "16-QAM, 4096 x 486 symbols (a step of the LDPC "
                         "cells)"})
+    k7r = report["path_m"]["k7"]
+    kernels.append({
+        "name": "polar_scl", "route": "cuda", "source": POLAR_SOURCE,
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the JAX package decodes polar "
+        "codes in plain XLA (commpy_tpu/ops/polar.py)",
+        "launches": sum(path_launches["polar_scl"].values()),
+        "path_launches": path_launches["polar_scl"],
+        "mismatches": k7r["mismatches"], "compared": k7r["compared"],
+        "points": k7r["points"],
+        "ms": k7r["ms"], "kernel_ms": k7r["ms"],
+        "device_ms": k7r["device_ms"], "ms_note": MS_NOTE,
+        "plain_ms": k7r["plain_ms"], "bound_ms": k7r["bound_ms"],
+        "bound_by": k7r["bound_by"], "library_ms": None,
+        "redesigned": True,
+        "shape": "(1024, 512 + CRC11) SCL-8, F=4096 (a step of "
+                 "polar1024.waterfall5)"})
     report["kernels"] = kernels
     lap("timing")
     report["phase_s"] = phase_s

@@ -26,7 +26,6 @@ The MIMO detectors' LLRs follow the reference's sign (positive => bit 0).
 """
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -1226,6 +1225,7 @@ def make_polar_awgn_link(
     modulation_m: int = 2,
     use_psk: bool = True,
     rule: str = "minsum",
+    constellation=None,
     name: str = "polar-awgn",
     device="cuda",
 ) -> DeviceLink:
@@ -1233,17 +1233,26 @@ def make_polar_awgn_link(
 
     ``code`` is a :class:`~commpy_tpu_torch.ops.polar.PolarCode` (build
     with :func:`~commpy_tpu_torch.ops.polar.polar_construct`; give it a CRC
-    for CRC-aided list decoding).  ``decoder``: 'sc' or 'scl'; on a GPU the
-    list decoder is the one specialised to the frozen mask, on the CPU the
-    blocked scan (the same decisions).  The LLRs are the negated demapper
-    output (positive => bit 0), rate-recovered to the mother code.  CRC
-    parity bits count as rate overhead in the Eb/N0 accounting (rate =
-    K / E).
+    for CRC-aided list decoding).  ``decoder``: 'sc' or 'scl'; the list
+    decoder is :func:`~commpy_tpu_torch.ops.polar.polar_scl_decode`'s
+    route, chosen once here: K7 on a GPU for the codes it takes, else the
+    decoder specialised to the frozen mask, and the blocked scan on the
+    CPU (the same decisions).  ``constellation`` (points indexed by their
+    label, e.g. :func:`~commpy_tpu_torch.ops.modem.nr_qpsk_constellation`)
+    replaces ``modulation_m`` / ``use_psk``; Es and the bits a symbol come
+    from it.  The LLRs are the negated demapper output (positive => bit
+    0), rate-recovered to the mother code.  CRC parity bits count as rate
+    overhead in the Eb/N0 accounting (rate = K / E).
     """
     if decoder not in ("sc", "scl"):
         raise ValueError(f"decoder must be 'sc' or 'scl', got {decoder!r}")
     dev = resolve_device(device)
-    const, Es, bps = _constellation(modulation_m, use_psk)
+    if constellation is None:
+        const, Es, bps = _constellation(modulation_m, use_psk)
+    else:
+        pts = np.asarray(constellation)
+        Es = float(np.mean(np.abs(pts.astype(np.complex128)) ** 2))
+        const, bps = pts.astype(np.complex64), int(np.log2(pts.size))
     if code.E % bps:
         raise ValueError(f"E={code.E} must fill whole {bps}-bit symbols")
     rate = code.rate
@@ -1251,10 +1260,9 @@ def make_polar_awgn_link(
     if decoder == "sc":
         polar_decode = P.make_polar_sc_decoder(code, rule=rule, device=dev)
     else:
-        # the device's builder, as the ops entry point picks it (cached)
-        polar_decode = functools.partial(
-            P.polar_scl_decode, code, list_size=list_size, rule=rule,
-            device=dev)
+        # the route, planned once (cached)
+        polar_decode = P.make_polar_scl_route(code, list_size=list_size,
+                                              rule=rule, device=dev)
 
     def receive(bits, noise, noise_std):
         with span("link.encode"):

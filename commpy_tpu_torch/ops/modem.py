@@ -4,7 +4,7 @@ Counterpart of ``commpy_tpu/ops/modem.py``:
 
 * constellations are built once on the host, Gray-labelled by the closed
   form ``i ^ (i >> 1)``; :func:`lte_16qam_constellation` is LTE's labelling
-  (beyond the reference);
+  and :func:`nr_qpsk_constellation` NR's QPSK (both beyond the reference);
 * ``modulate`` is a batched gather;
 * ``demodulate_hard`` is a distance-matrix argmin with the first-index
   tie-break;
@@ -37,6 +37,7 @@ __all__ = [
     "psk_constellation",
     "qam_constellation",
     "lte_16qam_constellation",
+    "nr_qpsk_constellation",
     "modulate",
     "demodulate_hard",
     "demodulate_soft",
@@ -87,6 +88,16 @@ def lte_16qam_constellation() -> np.ndarray:
     b = np_unpack_bits(np.arange(16), 4).astype(np.int64)
     return ((1 - 2 * b[:, 0]) * (1 + 2 * b[:, 2])
             + 1j * (1 - 2 * b[:, 1]) * (1 + 2 * b[:, 3])) / np.sqrt(10)
+
+
+def nr_qpsk_constellation() -> np.ndarray:
+    """NR's QPSK (3GPP TS 38.211 5.1.3), complex64, indexed by the label's
+    bits b0 b1, most significant first (as :func:`modulate` packs them):
+    d = ((1-2b0) + j(1-2b1))/sqrt(2), so 00 -> (1+1j)/sqrt(2) and 01 ->
+    (1-1j)/sqrt(2).  Its mean energy is 1 to float32 rounding."""
+    b = np_unpack_bits(np.arange(4), 2).astype(np.int64)
+    return (((1 - 2 * b[:, 0]) + 1j * (1 - 2 * b[:, 1])) / np.sqrt(2)
+            ).astype(np.complex64)
 
 
 def constellation_bit_masks(m: int, bps: int) -> np.ndarray:

@@ -1,8 +1,10 @@
 r"""Polar codes: construction, encoding, SC and CRC-aided SCL decoding.
 
 Counterpart of ``commpy_tpu/ops/polar.py`` (the reference has no polar
-codec).  Polar has no kernel of its own: the decoders are plain PyTorch,
-as the JAX package's are plain XLA.
+codec).  The decoders are plain PyTorch, as the JAX package's are plain
+XLA; on the card the list decode of the codes it takes runs on K7
+(``kernels/polar_scl.py``, one launch a batch), which the route of
+:func:`make_polar_scl_route` picks once a code.
 
 * **Construction**: Bhattacharyya (log domain) and Gaussian-approximation
   density evolution, offline NumPy in float64, as in the JAX package, so
@@ -49,6 +51,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..kernels import polar_scl as _k7
 from ..utils.device import device_constant, on_device, resolve_device
 from .crc import (CRC_POLYNOMIALS, CrcSpec, crc_check_table,
                   crc_encode_table)
@@ -75,6 +78,7 @@ _F32 = torch.float32
 _PM_INACTIVE = 1e30  # path metric of list slots not yet branched
 _CRC_FAIL = 1e20  # added to the metric of CRC-failing paths at selection
 _SHORTEN_LLR = 1e9  # "known zero" LLR of shortened positions
+_BACKENDS = ("auto", "cuda", "torch")
 # SC's default block of 2^SC_BLOCK_EXP leaves, on every device.  The
 # eager loop is paced by its launches, which vary little with the block
 # size; chip_smoke.py's Path M sweeps sizes 5-10 on the card
@@ -839,16 +843,70 @@ def make_polar_scl_decoder_unrolled(code, list_size=8, rule="minsum",
     return decode
 
 
-def polar_scl_decode(code, llr, list_size=8, rule="minsum", pm_rule="approx",
-                     device="cuda"):
-    """List decode. llr [B, N] -> payload [B, K] int8 (CRC-aided if set).
+def polar_scl_route(code, list_size, rule, pm_rule, backend,
+                    device_type) -> str:
+    """The list decoder's route for ``code`` on a ``device_type`` device:
+    ``'kernel'`` (K7), ``'unrolled'``
+    (:func:`make_polar_scl_decoder_unrolled`) or ``'scan'``
+    (:func:`make_polar_scl_decoder`).
 
-    On a GPU this takes the decoder specialised to the frozen mask
-    (:func:`make_polar_scl_decoder_unrolled`), on the CPU the blocked
-    scan (:func:`make_polar_scl_decoder`); their outputs are the same.
+    ``backend='auto'`` takes K7 on the card for every code its plan takes
+    (:func:`~commpy_tpu_torch.kernels.polar_scl.polar_scl_plan`: N <= 1024,
+    L <= 8, min-sum, approximate metric, non-systematic), the unrolled
+    decoder for the rest of the card's, and the scan on the CPU;
+    ``'torch'`` takes the plain decoders on any device; ``'cuda'`` raises
+    unless the device is the card and K7 takes the code.
     """
+    if backend not in _BACKENDS:
+        raise ValueError(f"backend must be one of {_BACKENDS}, got "
+                         f"{backend!r}")
+    takes = _k7.polar_scl_plan(
+        code.N, list_size, rule, pm_rule, code.systematic,
+        code.crc.length if code.crc else 0) is not None
+    if backend == "cuda":
+        if device_type != "cuda":
+            raise ValueError("backend='cuda' needs a CUDA tensor, got one on "
+                             f"{device_type}")
+        if not takes:
+            raise NotImplementedError(
+                f"backend='cuda' takes non-systematic codes of N <= "
+                f"{_k7.MAX_N} with at most {_k7.MAX_LIST} paths, min-sum "
+                f"and the approximate metric (got N = {code.N}, "
+                f"list_size = {list_size}, rule = {rule!r}, pm_rule = "
+                f"{pm_rule!r}, systematic = {code.systematic}); use "
+                "backend='auto'")
+        return "kernel"
+    if device_type != "cuda":
+        return "scan"
+    return "kernel" if backend == "auto" and takes else "unrolled"
+
+
+@functools.lru_cache(maxsize=64)
+def make_polar_scl_route(code, list_size=8, rule="minsum", pm_rule="approx",
+                         backend="auto", device="cuda"):
+    """``decode(llr [B, N]) -> payload [B, K]`` int8 on ``device`` by
+    :func:`polar_scl_route`'s choice, made once here."""
     dev = resolve_device(device)
-    make = (make_polar_scl_decoder_unrolled if dev.type == "cuda"
+    route = polar_scl_route(code, list_size, rule, pm_rule, backend,
+                            dev.type)
+    if route == "kernel":
+        return _k7.make_polar_scl_kernel(code, list_size, device=dev)
+    make = (make_polar_scl_decoder_unrolled if route == "unrolled"
             else make_polar_scl_decoder)
     return make(code, list_size=list_size, rule=rule, pm_rule=pm_rule,
-                device=dev)(llr)
+                device=dev)
+
+
+def polar_scl_decode(code, llr, list_size=8, rule="minsum", pm_rule="approx",
+                     backend="auto", device="cuda"):
+    """List decode. llr [B, N] -> payload [B, K] int8 (CRC-aided if set).
+
+    The route (:func:`polar_scl_route`): on a GPU K7 for the codes it
+    takes and the decoder specialised to the frozen mask
+    (:func:`make_polar_scl_decoder_unrolled`) for the rest; on the CPU the
+    blocked scan (:func:`make_polar_scl_decoder`).  Their outputs are the
+    same.
+    """
+    return make_polar_scl_route(code, list_size=list_size, rule=rule,
+                                pm_rule=pm_rule, backend=backend,
+                                device=device)(llr)
