@@ -157,10 +157,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (B=2048), scan SCL-8 (B=256) and unrolled SCL-8 (B=1024) decoders at
    the JAX bench's batches (CUDA events), each decoding a B=16 batch on
    the card as on the host (every output); K7 on the benchmark's NR QPSK
-   link at F=4096 and Eb/N0 0, 1.5 and 2.5 dB equal to the unrolled
+   link at F=4096 + 3 and Eb/N0 0, 1.5 and 2.5 dB equal to the unrolled
    decoder in every payload bit (most frames failing the CRC on every
-   path at 0 dB), one K7 launch a decode and none on the plain route,
-   and K7 timed beside ``portbench/bounds_k7.py``; N, the IDD K-best(16)
+   path at 0 dB), and at 1.5 dB at every list size 1 .. 8, each launch
+   running ``ceil(F / (32 / paths))`` warps, one K7 launch a decode and
+   none on the plain route, and K7 timed at F=4096 beside
+   ``portbench/bounds_k7.py`` and for one warp alone; N, the IDD K-best(16)
    WiMAX (1440, 720) MSA-15 link (one exchange) at F=512, its BER at 17/18/19
    dB within rtol 2 of (1.7e-1, 1e-1, 2.5e-3) and at most 1.5x each, K4
    launched twice a step and held to its plain version on the LLRs the
@@ -2089,12 +2091,17 @@ def polar_path(torch, report):
 def k7_checks(torch, code):
     """K7 on the benchmark's link (``portbench/configs/
     polar1024-crc11-qpsk.json``: the (1024, 512 + CRC11) code, NR QPSK,
-    SCL-8) at F = 4096 and three SNRs, Eb/N0 0, 1.5 and 2.5 dB: the link's
-    decode (its route, K7) equal to the unrolled decoder's, every payload
-    bit; one K7 launch a decode, none on the plain route (``backend=
-    'torch'``); at Eb/N0 0 dB most frames fail the CRC on every path.  K7
-    timed at the cell's batch (CUDA events, and the profiler) beside
-    ``bounds_k7``'s least time and the unrolled decoder's time."""
+    SCL-8) at F = 4096 + 3, a batch that leaves the last warp three frames
+    (at every list size): at three SNRs, Eb/N0 0, 1.5 and 2.5 dB, the
+    link's decode (its route, K7) equal to the unrolled decoder's, every
+    payload bit; one K7 launch a decode, none on the plain route
+    (``backend='torch'``); at Eb/N0 0 dB most frames fail the CRC on every
+    path.  At Eb/N0 1.5 dB K7 equal to the unrolled decoder at every list
+    size 1 .. 8, each launch running ``ceil(F / (32 / paths))`` warps
+    (``polar_scl.warps``).  K7 timed at the cell's batch, F = 4096 (CUDA
+    events, and the profiler), beside ``bounds_k7``'s least time and the
+    unrolled decoder's time, and one warp alone (32 / paths frames): the
+    walk's latency, the floor of a launch."""
     from commpy_tpu_torch.kernels import polar_scl as K7
     from commpy_tpu_torch.models import make_polar_awgn_link
     from commpy_tpu_torch.ops import modem as M
@@ -2102,7 +2109,7 @@ def k7_checks(torch, code):
     from commpy_tpu_torch.ops.crc import crc_check_table
 
     dev = torch.device("cuda")
-    F = 4096
+    F = 4096 + 3
     link = make_polar_awgn_link(code=code, decoder="scl", list_size=8,
                                 constellation=M.nr_qpsk_constellation())
     plain = PP.make_polar_scl_decoder_unrolled(code, list_size=8, full=True,
@@ -2111,13 +2118,23 @@ def k7_checks(torch, code):
         np.float32), device=dev)
     info = torch.as_tensor(code.info_positions, device=dev)
     out = {"points": {}, "mismatches": 0, "compared": 0}
+
+    def warps_ok(L):
+        want = -(-F // (32 // (1 << (L - 1).bit_length())))
+        if K7.polar_scl.warps != want:
+            fail(f"Path M: K7 ran {K7.polar_scl.warps} warps for {F} frames "
+                 f"with {L} paths, not {want}")
+
+    llrs = {}
     for k, ebn0 in enumerate((0.0, 1.5, 2.5)):
         bits, llr = link_receive(torch, link, F, ebn0 + 10 * np.log10(2),
                                  96 + k)
+        llrs[ebn0] = llr
         before = K7.polar_scl.launches
         got = link.decode(llr)
         torch.cuda.synchronize()
         route = K7.polar_scl.launches - before
+        warps_ok(8)
         want, _, u_all = plain(llr)
         plain_route = PP.polar_scl_decode(code, llr, list_size=8,
                                           backend="torch")
@@ -2143,21 +2160,43 @@ def k7_checks(torch, code):
     if out["points"]["ebn0_0.0"]["all_paths_fail_crc"] <= F // 2:
         fail(f"Path M: at Eb/N0 0 dB only {out['points']['ebn0_0.0']} "
              "frames fail the CRC on every path")
+    by_list = {}
+    for L in range(1, 9):
+        got = K7.make_polar_scl_kernel(code, L, device=dev)(llrs[1.5])
+        torch.cuda.synchronize()
+        warps_ok(L)
+        want = PP.make_polar_scl_decoder_unrolled(code, list_size=L,
+                                                  device=dev)(llrs[1.5])
+        by_list[L] = int((got != want).sum())
+        out["mismatches"] += by_list[L]
+        out["compared"] += got.numel()
+    out["by_list_size"] = by_list
+    print(f"Path M K7 at Eb/N0 1.5 dB, F={F}, mismatches by list size: "
+          f"{by_list}", flush=True)
+    if any(by_list.values()):
+        fail(f"Path M: K7 decodes differently from the unrolled decoder "
+             f"by list size: {by_list}")
+    llr = llrs[1.5][:4096]
+    G = 32 // 8
     dec = PP.make_polar_scl_route(code, list_size=8, device=dev)
     plain_dec = PP.make_polar_scl_decoder_unrolled(code, list_size=8,
                                                    device=dev)
     out["ms"] = cuda_ms(torch, lambda: dec(llr), 5)
     out["device_ms"] = device_ms(torch, lambda: dec(llr), 3,
                                  "polar_scl_kernel")
+    out["one_warp_ms"] = cuda_ms(torch, lambda: dec(llr[:G]), 5)
+    out["one_warp_device_ms"] = device_ms(torch, lambda: dec(llr[:G]), 3,
+                                          "polar_scl_kernel")
     out["plain_ms"] = cuda_ms(torch, lambda: plain_dec(llr), 1)
-    out["bound"] = k7_bound(F, code.N, 8, code.k_total, code.K)
-    out["bound_ms"] = k7_bound_s(F, code.N, 8, code.k_total, code.K) * 1e3
+    out["bound"] = k7_bound(4096, code.N, 8, code.k_total, code.K)
+    out["bound_ms"] = k7_bound_s(4096, code.N, 8, code.k_total, code.K) * 1e3
     out["bound_by"] = ("bytes" if out["bound"][0] / HBM_BYTES_PER_S >=
                        out["bound"][1] / F32_INSTR_PER_S else "operations")
-    print(f"Path M K7 at F={F}: {out['ms']:.4f} ms a decode "
-          f"[{ms_str(out['device_ms'])}], bound {out['bound_ms']:.4f} ms "
-          f"({out['bound_by']}), unrolled decoder {out['plain_ms']:.1f} ms",
-          flush=True)
+    print(f"Path M K7 at F=4096: {out['ms']:.4f} ms a decode "
+          f"[{ms_str(out['device_ms'])}], one warp ({G} frames) "
+          f"{out['one_warp_ms']:.4f} [{ms_str(out['one_warp_device_ms'])}], "
+          f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}), unrolled "
+          f"decoder {out['plain_ms']:.1f} ms", flush=True)
     return out
 
 

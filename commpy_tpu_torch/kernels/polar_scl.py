@@ -39,6 +39,11 @@ MAX_CRC = 32  # CRC bits a path's syndrome register holds
 MAX_VTOP = 3  # top levels recomputed: 8 channel LLRs a value at most
 
 
+def _paths(list_size: int) -> int:
+    """The list's slots: ``list_size`` rounded up to a power of two."""
+    return 1 << (int(list_size) - 1).bit_length()
+
+
 def polar_scl_plan(N: int, L: int, rule: str = "minsum",
                    pm_rule: str = "approx", systematic: bool = False,
                    crc_bits: int = 0, frozen_level: int = 0):
@@ -47,15 +52,17 @@ def polar_scl_plan(N: int, L: int, rule: str = "minsum",
 
     K7 takes power-of-two ``N`` in [2, :data:`MAX_N`], ``1 <= L <=``
     :data:`MAX_LIST`, the min-sum f with the approximate path metric, and
-    non-systematic codes with at most :data:`MAX_CRC` CRC bits.  A block
-    is one warp a frame; the list runs in ``paths`` slots (``L`` rounded
-    up to a power of two).  Shared memory holds a prune's candidates (96
-    bytes), the LLRs of the tree's levels but the top ``vtop`` (``4 N /
-    2^vtop`` bytes a slot) and the partial sums as bits (``N / 8`` bytes a
-    slot).  The top ``vtop`` levels, up to :data:`MAX_VTOP` and at most n
-    - 1, are recomputed from the channel where read; they stay below the
-    walk's highest all-frozen subtree, ``frozen_level``, whose leaves are
-    made in place.  Returns ``{"paths", "threads", "vtop",
+    non-systematic codes with at most :data:`MAX_CRC` CRC bits.  The list
+    runs in ``paths`` slots (``L`` rounded up to a power of two), and a
+    block of ``threads`` is one warp of ``32 / paths`` frames, one lane a
+    path.  Shared memory holds, a frame, a prune's candidates (96 bytes),
+    the LLRs of the tree's levels but the top ``vtop`` (``4 N / 2^vtop``
+    bytes a slot) and the partial sums as bits (``N / 8`` bytes a slot):
+    ``smem_bytes`` is a frame's, and a warp takes ``32 / paths`` times it.
+    The top ``vtop`` levels, up to :data:`MAX_VTOP` and at most n - 1, are
+    recomputed from the channel where read; they stay below the walk's
+    highest all-frozen subtree, ``frozen_level``, whose leaves are made in
+    place.  Returns ``{"paths", "threads", "vtop",
     "smem_bytes"}``.
     """
     n = int(N).bit_length() - 1
@@ -63,7 +70,7 @@ def polar_scl_plan(N: int, L: int, rule: str = "minsum",
             or rule != "minsum" or pm_rule != "approx" or systematic
             or crc_bits > MAX_CRC):
         return None
-    paths = 1 << (int(L) - 1).bit_length()
+    paths = _paths(L)
     vtop = max(0, min(MAX_VTOP, n - 1, n - 1 - int(frozen_level)))
     return {"paths": paths, "threads": 32, "vtop": vtop,
             "smem_bytes": 96 + 4 * (N >> vtop) * paths
@@ -120,7 +127,8 @@ def polar_scl(llr: torch.Tensor, units: torch.Tensor, crc_rows, K: int,
     that is not float32 on a CUDA device and for a shape K7 does not
     take.
 
-    Counter: ``polar_scl.launches``, every launch.
+    Counters: ``polar_scl.launches``, every launch; ``polar_scl.warps``,
+    the warps of the last launch, ``ceil(B / (32 / paths))``.
     """
     if llr.dtype != torch.float32 or llr.device.type != "cuda":
         raise ValueError(f"polar_scl takes float32 CUDA LLRs, not "
@@ -135,6 +143,8 @@ def polar_scl(llr: torch.Tensor, units: torch.Tensor, crc_rows, K: int,
     if units.dtype != torch.int32 or units.device != llr.device:
         raise ValueError("units must be int32 on the LLRs' device")
     x = llr.reshape(-1, N).contiguous()
+    if x.data_ptr() % 16:  # K7 reads the channel as float4
+        x = x.clone()
     out = torch.empty((x.shape[0], K), dtype=torch.int8, device=llr.device)
     if x.shape[0] and K:
         dev = llr.device
@@ -148,10 +158,12 @@ def polar_scl(llr: torch.Tensor, units: torch.Tensor, crc_rows, K: int,
             raise RuntimeError(f"polar_scl kernel launch failed: CUDA "
                                f"error {rc}")
         polar_scl.launches += 1
+        polar_scl.warps = -(-x.shape[0] * _paths(list_size) // 32)
     return out.reshape(*llr.shape[:-1], K)
 
 
 polar_scl.launches = 0
+polar_scl.warps = 0
 
 
 @functools.lru_cache(maxsize=64)

@@ -6,10 +6,14 @@ benchmark (``portbench/reference/polar1024.py``), which restates TS
 
 Points, frozen sets, CRC and codewords agree exactly; decisions agree
 bit for bit (min-sum f, the approximate path metric).  K7 itself runs
-only on the card (``chip_smoke.py`` Path M holds it to the plain decoder
-there); here its plan and route are checked, and a plain model of its
-walk (units, slot maps, partial sums merged into the g stage, the
-frozen-subtree cascade, the prune) is held to the plain decoder.
+only on the card: the tests marked ``card`` hold it to the unrolled
+decoder there (``python -m pytest tests/test_torch_polar1024.py
+--noconftest -m card``; this file imports no JAX), as ``chip_smoke.py``
+Path M does.  Here its plan and route are checked, and a plain model of
+its warp (32 / PP frames side by side in the kernel's columns, units,
+slot maps, partial sums merged into the g stage a word at a time, the
+frozen-subtree cascade, the prune within a frame's lanes) is held to the
+plain decoder.
 """
 import numpy as np
 import pytest
@@ -223,102 +227,193 @@ def test_polar_units_cover_the_leaves_in_order(N, lev):
         assert a % (1 << w) == 0
 
 
-# --------------------------------------------- a plain model of K7's walk
+# --------------------------------------------- a plain model of K7's warp
+
+M32 = 0xFFFFFFFF
+# over the 32 elements i of a word: bit i set where bit lv of i is clear,
+# and the factor that repeats a 2^lv-bit word across 32 bits
+_CLEAR = [0x55555555, 0x33333333, 0x0F0F0F0F, 0x00FF00FF, 0x0000FFFF]
+_REPEAT = [0xFFFFFFFF, 0x55555555, 0x11111111, 0x01010101, 0x00010001]
+
 
 def _f(a, b):
-    return F32(np.sign(a) * np.sign(b) * min(abs(a), abs(b)))
+    """K7's f: min(|a|, |b|) with the XOR of the sign bits."""
+    m = np.minimum(np.abs(a), np.abs(b)).astype(F32)
+    sign = (a.view(np.uint32) ^ b.view(np.uint32)) & np.uint32(0x80000000)
+    return (m.view(np.uint32) | sign).view(F32)
 
 
-def _k7_model(llr, code, P):
-    """One frame along K7's walk (``csrc/polar_scl.cu``): every path
-    writes only its own slot, paths are copied by their slot maps, the
-    partial sums of level t are made in the g stage at level t, and an
-    all-frozen subtree takes its leaves level-parallel."""
+def _g(a, b, s):
+    return np.where(s.astype(bool), b - a, b + a).astype(F32)
+
+
+def _k7_warp(ch, code, L, vtop):
+    """One warp of K7 (``csrc/polar_scl.cu``) over the frames ``ch``
+    [32 / PP, N], in the kernel's layout: 32 columns, column = lane =
+    frame * PP + slot, for the LLR rows (``Lb``) and for the partial-sum
+    words of levels 5 and up (``Cq``, 32 elements a word); a path's state
+    per lane (metric, syndrome, last bit, ``clow``, slot maps, payload
+    words), a prune's ranking within the frame's PP lanes and its copies
+    from the parent's lane (the shuffles), the top ``vtop`` levels
+    recomputed from the channel.  Returns the payloads [32 / PP, K]."""
     N, n, K = code.N, code.n, code.K
-    PS = 1 << (P - 1).bit_length()
-    Lb = np.zeros((N, PS), F32)
-    Cb = np.zeros((N, PS), np.int64)
+    PP = 1 << (L - 1).bit_length()
+    G = 32 // PP
+    lane = np.arange(32)
+    p, fr = lane % PP, lane // PP
+    base = lane - p
+    real = p < L
+    Lb = np.zeros((N >> vtop, 32), F32)
+    Cq = np.zeros((max(N // 32, 1), 32), np.int64)
+    chl = ch.astype(F32)[fr]  # each lane's frame
     rows = K7._crc_rows(code).view(np.uint32) if code.crc else None
-    pm = [F32(0.0)] + [F32(1e30)] * (PS - 1)
-    syn, last = [0] * PS, [0] * PS
-    lmap = [[p] * n for p in range(PS)]
-    cmap = [[p] * n for p in range(PS)]
-    bits = [[0] * K for _ in range(PS)]
-    lam = [F32(0)] * PS
+    pm = np.where(p == 0, F32(0), F32(1e30)).astype(F32)
+    syn = np.zeros(32, np.int64)
+    last = np.zeros(32, np.int64)
+    clow = np.zeros(32, np.int64)
+    lmap = np.repeat(p[:, None], n, 1)
+    cmap = lmap.copy()
+    words = np.zeros((32, -(-K // 32)), np.int64)
+    lam = np.zeros(32, F32)
     prev = 0
-    ch = llr.astype(F32)
+
+    def cget(lv, k):
+        r = (1 << lv) + k
+        if lv < 5:
+            return (clow >> r) & 1
+        return (Cq[r >> 5, base + cmap[:, lv]] >> (r & 31)) & 1
+
+    def top(D, lv, k, lo):
+        w = 1 << lv
+        x = [chl[:, k + q * w] for q in range(1 << D)]
+        for s_ in range(D):
+            Lv = n - 1 - s_
+            half = (1 << D) >> (s_ + 1)
+            for q in range(half):
+                a, b = x[q], x[q + half]
+                x[q] = (_g(a, b, cget(Lv, k + q * w)) if (lo >> Lv) & 1
+                        else _f(a, b))
+        return x[0]
+
+    def src(l, i, col, lo):
+        h, depth = 1 << l, n - l - 1
+        if depth > vtop:
+            return Lb[2 * h + i, col], Lb[3 * h + i, col]
+        return top(depth, l + 1, i, lo), top(depth, l + 1, i + h, lo)
+
     for d in map(int, K7.polar_units(code.frozen_mask)):
         lo, lev, info, j = d & 2047, (d >> 11) & 15, (d >> 15) & 1, d >> 16
         t = n
         if lo:
             t = (lo & -lo).bit_length() - 1
             h = 1 << t
-            for p in range(PS):
-                sl = lmap[p][t + 1] if t + 1 < n else None
-                for i in range(h):
-                    s = last[p]
-                    for lv in range(prev, t):
-                        if not (i >> lv) & 1:
-                            s ^= Cb[(1 << lv) + (i & ((1 << lv) - 1)),
-                                    cmap[p][lv]]
-                    Cb[h + i, p] = s
-                    a, b = ((ch[i], ch[i + h]) if sl is None else
-                            (Lb[2 * h + i, sl], Lb[3 * h + i, sl]))
-                    v = F32(b - a) if s else F32(b + a)
+            sl = base + (lmap[:, t + 1] if t + 1 < n else 0)
+            stored = t < n - vtop
+            low = np.where(last == 1, M32, 0)
+            for lv in range(prev, min(t, 5)):
+                c = (clow >> (1 << lv)) & ((1 << (1 << lv)) - 1)
+                low ^= (c * _REPEAT[lv]) & _CLEAR[lv]
+            if t < 5:
+                keep = M32 ^ (((1 << h) - 1) << h)
+                clow = (clow & keep) | ((low & ((1 << h) - 1)) << h)
+                for i in range(h if stored else 0):
+                    v = _g(*src(t, i, sl, lo), (low >> i) & 1)
                     if t == 0:
-                        lam[p] = v
+                        lam = v
                     else:
-                        Lb[h + i, p] = v
-                cmap[p][t] = lmap[p][t] = p
-        for lv in range(t - 1, lev - 1, -1):
+                        Lb[h + i] = v
+            else:
+                for w in range(h >> 5):
+                    s = low.copy()
+                    for lv in range(max(prev, 5), t):
+                        m = lv - 5
+                        if not (w >> m) & 1:
+                            r = (1 << m) + (w & ((1 << m) - 1))
+                            s ^= Cq[r, base + cmap[:, lv]]
+                    Cq[(h >> 5) + w] = s
+                    for ii in range(32 if stored else 0):
+                        i = (w << 5) + ii
+                        Lb[h + i] = _g(*src(t, i, sl, lo), (s >> ii) & 1)
+                cmap[:, t] = p
+            lmap[:, t] = p
+        for lv in range(min(t, n - vtop) - 1, lev - 1, -1):
             h = 1 << lv
-            for p in range(PS):
-                for i in range(h):
-                    a, b = ((ch[i], ch[i + h]) if lv + 1 == n else
-                            (Lb[2 * h + i, p], Lb[3 * h + i, p]))
-                    if lv == 0:
-                        lam[p] = _f(a, b)
-                    else:
-                        Lb[h + i, p] = _f(a, b)
-                lmap[p][lv] = p
-        if not info:
+            for i in range(h):
+                v = _f(*src(lv, i, lane, lo))
+                if lv == 0:
+                    lam = v
+                else:
+                    Lb[h + i] = v
+            lmap[:, lv] = p
+        if not info and lev:
             W = 1 << lev
             for s_ in range(lev):
                 hb = W >> (s_ + 1)
-                for p in range(PS):
-                    for k in range(W // 2):
-                        i0 = (k // hb) * 2 * hb + (k & (hb - 1))
-                        a, b = Lb[W + i0, p], Lb[W + i0 + hb, p]
-                        Lb[W + i0, p], Lb[W + i0 + hb, p] = _f(a, b), b + a
-            for p in range(PS):
-                leaves = [lam[p]] if lev == 0 else Lb[W:2 * W, p]
-                for x in leaves:
-                    pm[p] = F32(pm[p] + max(-x, F32(0)))
-                last[p] = 0
+                for k in range(W // 2):
+                    i0 = W + (k // hb) * 2 * hb + (k & (hb - 1))
+                    a, b = Lb[i0].copy(), Lb[i0 + hb].copy()
+                    Lb[i0], Lb[i0 + hb] = _f(a, b), b + a
+            for w in range(W):
+                pm = (pm + np.maximum(-Lb[W + w], F32(0))).astype(F32)
+            last[:] = 0
+        elif not info:
+            pm = (pm + np.maximum(-lam, F32(0))).astype(F32)
+            last[:] = 0
         else:
-            cand = [F32(pm[c % P] + max(lam[c % P] if c >= P else
-                                        -lam[c % P], F32(0)))
-                    for c in range(2 * P)]
-            rank = [sum((cand[k] < cand[c]) or (cand[k] == cand[c] and k < c)
-                        for k in range(2 * P)) for c in range(2 * P)]
-            old = (list(syn), [list(x) for x in lmap],
-                   [list(x) for x in cmap], [list(x) for x in bits])
-            for r in range(P):
-                c = rank.index(r)
-                q, nb = c % P, int(c >= P)
-                pm[r] = cand[c]
-                syn[r] = old[0][q] ^ (int(rows[j]) if nb and rows is not None
-                                      else 0)
-                lmap[r], cmap[r], bits[r] = (list(old[1][q]),
-                                             list(old[2][q]),
-                                             list(old[3][q]))
-                if nb and j < K:
-                    bits[r][j] = 1
-                last[r] = nb
+            c0 = (pm + np.maximum(-lam, F32(0))).astype(F32)
+            c1 = (pm + np.maximum(lam, F32(0))).astype(F32)
+            cs = np.full((G, 2 * L), np.nan, F32)
+            cs[fr[real], p[real]] = c0[real]
+            cs[fr[real], L + p[real]] = c1[real]
+            k = np.arange(2 * L)
+            mine = p.copy()
+            sel = np.zeros((G, L), np.int64)
+            for x in lane[real]:
+                for c, v in ((p[x], c0[x]), (L + p[x], c1[x])):
+                    rank = np.sum((cs[fr[x]] < v) | ((cs[fr[x]] == v) & (k < c)))
+                    if rank < L:
+                        sel[fr[x], rank] = c
+            mine[real] = sel[fr[real], p[real]]
+            nb = real & (mine >= L)
+            q = np.where(nb, mine - L, mine)
+            pm = np.where(real, cs[fr, np.minimum(mine, 2 * L - 1)], pm)
+            at = base + q  # the parent's lane
+            hr = int(rows[j]) if rows is not None else 0
+            syn = syn[at] ^ np.where(nb, hr, 0)
+            clow, lmap, cmap = clow[at], lmap[at], cmap[at]
+            jw = min(j, K - 1) >> 5
+            words[:, :jw + 1] = words[at, :jw + 1]
+            if j < K:
+                words[nb, j >> 5] |= 1 << (j & 31)
+            last = nb.astype(np.int64)
         prev = lev
-    score = [F32(pm[r] + F32(1e20)) if rows is not None and syn[r] else pm[r]
-             for r in range(P)]
-    return np.array(bits[int(np.argmin(score))], np.int8)
+    score = np.where((syn != 0) & (rows is not None), pm + F32(1e20),
+                     pm).astype(F32)
+    out = np.zeros((G, K), np.int8)
+    for f_ in range(G):
+        win = 0
+        for r in range(1, L):
+            if score[f_ * PP + r] < score[f_ * PP + win]:
+                win = r
+        bits = (words[f_ * PP + win][:, None] >> np.arange(32)) & 1
+        out[f_] = bits.reshape(-1)[:K]
+    return out
+
+
+def _k7_model(llr, code, L):
+    """K7 on a batch ``llr`` [B, N]: warps of 32 / PP frames, the frames
+    past B in the last warp the batch's last frame, their payloads
+    dropped."""
+    walk = K7.polar_units(code.frozen_mask)
+    plan = K7.polar_scl_plan(code.N, L, frozen_level=int(
+        ((walk >> 11) & 15).max()))
+    G = 32 // plan["paths"]
+    B = len(llr)
+    warps = -(-B // G)
+    idx = np.minimum(np.arange(warps * G), B - 1)
+    out = np.concatenate([_k7_warp(llr[idx[w * G:(w + 1) * G]], code, L,
+                                   plan["vtop"]) for w in range(warps)])
+    return out[:B]
 
 
 @pytest.mark.parametrize("N, A, crc, L, B", [
@@ -331,5 +426,47 @@ def test_model_of_k7s_walk_equals_the_plain_decoder(N, A, crc, L, B, level):
     llr = _llr(N, level, B, 7 * N + L)
     want = PP.make_polar_scl_decoder_unrolled(code, list_size=L,
                                               device=CPU)(llr).numpy()
-    got = np.stack([_k7_model(x, code, L) for x in llr])
-    assert np.array_equal(got, want)
+    assert np.array_equal(_k7_model(llr, code, L), want)
+
+
+@pytest.mark.parametrize("L", range(1, 9))
+@pytest.mark.parametrize("N, A, crc", [(64, 32, "crc6"), (128, 60, "crc11")])
+@pytest.mark.parametrize("level", ["clean", "fails"])
+def test_model_of_k7s_warp_at_every_list_size(N, A, crc, L, level):
+    """G = 32 / PP frames a warp at every list size, over a batch of one
+    warp and three frames more, so the last warp runs on masked frames."""
+    code = PP.polar_construct(N, A, crc=crc, design_snr_db=2.0)
+    B = 32 // (1 << (L - 1).bit_length()) + 3
+    llr = _llr(N, level, B, 11 * N + L)
+    want = PP.make_polar_scl_decoder_unrolled(code, list_size=L,
+                                              device=CPU)(llr).numpy()
+    assert np.array_equal(_k7_model(llr, code, L), want)
+
+
+# ------------------------------------------------------- K7 on the card
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("L", range(1, 9))
+@pytest.mark.parametrize("B", [1, 3, 4099])
+@pytest.mark.parametrize("N, A, crc", [(8, 1, "crc6"), (64, 32, "crc6"),
+                                       (1024, 512, "crc11")])
+@pytest.mark.parametrize("level", ["clean", "fails"])
+def test_k7_equals_the_unrolled_decoder_on_the_card(N, A, crc, L, B, level):
+    """Every list size (so every G = 32 / PP frames a warp), batches of
+    one frame, three, and one warp's worth past a multiple of G, frames
+    that pass the CRC and frames that fail it on every path."""
+    dev = _card()
+    code = PP.polar_construct(N, A, crc=crc, design_snr_db=2.0)
+    llr = torch.as_tensor(_llr(N, level, B, 13 * N + 17 * L + B),
+                          device=dev)
+    got = K7.make_polar_scl_kernel(code, L, device=dev)(llr)
+    want = PP.make_polar_scl_decoder_unrolled(code, list_size=L,
+                                              device=dev)(llr)
+    assert torch.equal(got, want)
+    assert K7.polar_scl.warps == -(-B // (32 // (1 << (L - 1).bit_length())))
