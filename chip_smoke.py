@@ -111,9 +111,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the uncoded K-best(16) 4x4 16-QAM link at F=2048 (65,536 vectors a
    step), BER at 16.02 dB within rtol 1.25 of the reference's 3e-2 and
    no error at 60 dB, and the K-best
-   search on the card against its plain version on the host on the same
-   draws, and 2x2 ML on their first two antennas (at most 1e-4 of vectors
-   differing); E, best-first(32) detection
+   search on the card (K8) against its plain version on the host on the
+   same draws, and 2x2 ML on their first two antennas (at most 1e-4 of
+   vectors differing); E, best-first(32) detection
    with WiMAX LDPC (1440, 720) MSA-15 on K4 at F=512, BER at 17/18/19 dB
    within rtol 2 of (1.7e-1, 1e-1, 2.5e-3) and at most 1.5x each, K-best(16)
    soft detection under 2e-2 at 21 dB; F, BASELINE configuration 5 (OFDM,
@@ -124,7 +124,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    draws, blind CP CFO sync a hundred times better than no correction at
    the JAX package's own configuration (648, QPSK, CFO 0.31) and ten
    times better at 1944 (the estimator's floor under multipath is
-   reported beside it, with no CFO);
+   reported beside it, with no CFO); K8 (``kbest.launches``) launched once
+   a K-best detection on D, E's K-best link and F, none on E's best-first
+   link;
    K4 on E's and G's own LLRs and K1, K2 on F's (with their +-inf values)
    against their plain versions, bit for bit; then 'auto' decoding of a
    K=12 code and a 32-state turbo code (the general and torch routes)
@@ -165,10 +167,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``portbench/bounds_k7.py`` and for one warp alone; N, the IDD K-best(16)
    WiMAX (1440, 720) MSA-15 link (one exchange) at F=512, its BER at 17/18/19
    dB within rtol 2 of (1.7e-1, 1e-1, 2.5e-3) and at most 1.5x each, K4
-   launched twice a step and ``kbest_device.vectors`` rising by two
-   detections a step, K4 held to its plain version on the LLRs the loop
-   hands its decoder and its decision, and one K-best pass timed at
-   F=4096 beside ``portbench/bounds_kbest.py``; O, the CommPy-compatible API:
+   launched twice a step, ``kbest_device.vectors`` rising by two
+   detections a step and K8 by two launches, K4 held to its plain version
+   on the LLRs the loop hands its decoder and its decision, K8 held to the
+   plain search on the benchmark cell's F=4096 pass, with the loop's
+   priors and without, and one pass (the triangularisation and K8) timed
+   there beside K8 alone, the plain search and
+   ``portbench/bounds_kbest.py``; O, the CommPy-compatible API:
    ``Wifi80211(4).link_performance`` over a ``SISOFlatChannel`` at 12 dB
    (K1/K2 counted) within 25% of the batched MCS-4 link's BER at the same
    noise_std, one ``channelcoding.turbo_decode`` (K3) equal to the torch
@@ -236,6 +241,7 @@ QC_SOURCE = "commpy_tpu_torch/kernels/csrc/qc_bp.cu"
 BCJR_SOURCE = "commpy_tpu_torch/kernels/csrc/bcjr.cu"
 DEMAP_SOURCE = "commpy_tpu_torch/kernels/csrc/demap.cu"
 POLAR_SOURCE = "commpy_tpu_torch/kernels/csrc/polar_scl.cu"
+KBEST_SOURCE = "commpy_tpu_torch/kernels/csrc/kbest.cu"
 MS_NOTE = ("ms: CUDA events around back-to-back wrapper calls, as for every "
            "kernel; device_ms: the kernel's own device time (torch.profiler), "
            "null where five profiles held no record of the kernel")
@@ -1373,6 +1379,7 @@ def mimo_ofdm_paths(torch, report, k7):
     read just after; the kernels of each path against their plain
     versions on the path's own inputs.  Returns {kernel: {path:
     launches}}."""
+    from commpy_tpu_torch.kernels import kbest as K8
     from commpy_tpu_torch.kernels import qc_bp as QK
     from commpy_tpu_torch.kernels import viterbi_acs as K
     from commpy_tpu_torch.models import (make_bestfirst_ldpc_mimo_link,
@@ -1387,8 +1394,24 @@ def mimo_ofdm_paths(torch, report, k7):
                                               viterbi_decode_device)
     from commpy_tpu_torch.utils import small_matmul
 
-    launches = {"acs_forward": {}, "traceback": {}, "qc_bp_resident": {}}
+    launches = {"acs_forward": {}, "traceback": {}, "qc_bp_resident": {},
+                "kbest": {}}
     k4_tally = QCTally()
+
+    def sweep_steps(res):
+        return res.rounds * len(res.bers)
+
+    def k8_route(path, run, detections):
+        """``out = run()``; fails unless K8 launched once a K-best
+        detection on the card, ``detections(out)`` times."""
+        K8.kbest.launches = 0
+        out = run()
+        n, want = K8.kbest.launches, detections(out)
+        launches["kbest"][path] = n
+        if n != want:
+            fail(f"Path {path}: K8 launched {n} times, not once a K-best "
+                 f"detection ({want})")
+        return out
     k12_tallies = {"acs_forward": Tally(), "traceback": Tally()}
     out = {}
 
@@ -1396,7 +1419,8 @@ def mimo_ofdm_paths(torch, report, k7):
     kb = make_kbest_mimo_link(nb_tx=4, nb_rx=4, modulation_m=16, K=16,
                               vectors_per_frame=32)
     snr_d = 10.0 + 10 * np.log10(4)
-    res = mc(kb, [snr_d], 30, 2048, 2)
+    res = k8_route("D", lambda: mc(kb, [snr_d], 30, 2048, 2),
+                   sweep_steps)
     e60 = step_errors(torch, kb, 2048, 60.0, 31)
     ber_d = float(res.bers[0])
     # K-best on the card against the plain search on the host, same draws
@@ -1407,7 +1431,8 @@ def mimo_ofdm_paths(torch, report, k7):
     y = small_matmul(h, x[..., None])[..., 0] + noise * float(
         np.float32(ns) * np.float32(0.5))
     yv, hv = y.reshape(-1, 4), h.reshape(-1, 4, 4)
-    xh = kbest_device(yv, hv, const, 16)
+    xh = k8_route("D-direct", lambda: kbest_device(yv, hv, const, 16),
+                  lambda _: 1)
     xh_cpu = kbest_device(yv.cpu(), hv.cpu(), const, 16, device="cpu")
     differ = float((xh.cpu() != xh_cpu).any(-1).float().mean())
     # exhaustive ML at a size whose candidate grid fits (2x2 16-QAM,
@@ -1438,13 +1463,16 @@ def mimo_ofdm_paths(torch, report, k7):
                                                 "1440.720.txt"), True)
     bf = make_bestfirst_ldpc_mimo_link(ldpc_params=wimax, beam=32)
     QK.qc_bp_resident.launches = 0
-    res = mc(bf, [17.0, 18.0, 19.0], 34, 512, 2)
+    res = k8_route("E-bestfirst",
+                   lambda: mc(bf, [17.0, 18.0, 19.0], 34, 512, 2),
+                   lambda _: 0)
     launches["qc_bp_resident"]["E"] = QK.qc_bp_resident.launches
     bers_e = [float(b) for b in res.bers]
     desired = np.array([1.7e-1, 1e-1, 2.5e-3])
     kbe = make_bestfirst_ldpc_mimo_link(ldpc_params=wimax, beam=16,
                                         detector="kbest")
-    res_k = mc(kbe, [21.0], 35, 512, 1)
+    res_k = k8_route("E", lambda: mc(kbe, [21.0], 35, 512, 1),
+                     sweep_steps)
     ber_k = float(res_k.bers[0])
     out["path_e"] = {"bers": bers_e, "snrs_db": [17.0, 18.0, 19.0],
                      "reference": desired.tolist(),
@@ -1475,7 +1503,8 @@ def mimo_ofdm_paths(torch, report, k7):
                                   n_ofdm_symbols=4)
     K.acs_forward.launches = 0
     K.traceback.launches = 0
-    res = mc(of, [35.0, 5.0], 39, 2048, 1)
+    res = k8_route("F", lambda: mc(of, [35.0, 5.0], 39, 2048, 1),
+                   sweep_steps)
     launches["acs_forward"]["F"] = K.acs_forward.launches
     launches["traceback"]["F"] = K.traceback.launches
     bers_f = [float(b) for b in res.bers]
@@ -1575,7 +1604,7 @@ def mimo_ofdm_paths(torch, report, k7):
               k4_tally)
     print(f"K4 on Paths E and G's own LLRs: {k4_tally.mismatches} "
           f"mismatches in {k4_tally.cases} cases, {k4_tally.compared} "
-          f"decisions", flush=True)
+          f"decisions; K8 launches by path {launches['kbest']}", flush=True)
     out["k4_path_parity"] = {"mismatches": k4_tally.mismatches,
                              "cases": k4_tally.cases,
                              "compared": k4_tally.compared}
@@ -2205,11 +2234,16 @@ def idd_path(torch, report):
     frame a step); K4 on the LLRs the loop hands its decoder and its
     decision, against its plain version; one K-best pass (``link.detect``)
     timed at the benchmark cell's F=4096 beside ``bounds_kbest``'s least
-    time.  Returns {kernel: {path: launches}}."""
+    time, K8 alone and the plain search, and K8 held to the plain search
+    there bit for bit, with the loop's priors, zero priors and none.  K8
+    must launch twice a step.  Returns {kernel: {path: launches}}."""
+    from commpy_tpu_torch.kernels import kbest as K8
     from commpy_tpu_torch.kernels import qc_bp as QK
     from commpy_tpu_torch.models import (idd_decoder_device,
                                          make_idd_kbest_ldpc_mimo_link)
     from commpy_tpu_torch.ops import ldpc as L
+    from commpy_tpu_torch.ops import mimo as MI
+    from commpy_tpu_torch.ops import modem as M
     from commpy_tpu_torch.ops.mimo import kbest_device
 
     wimax = L.design_code_params("wimax/1440.720.txt", True)
@@ -2217,9 +2251,11 @@ def idd_path(torch, report):
     snrs = [17.0, 18.0, 19.0]
     QK.qc_bp_resident.launches = 0
     kbest_device.vectors = 0
+    K8.kbest.launches = 0
     res = mc(link, snrs, 100, 512, 2)
     launches = QK.qc_bp_resident.launches
     vectors = kbest_device.vectors
+    k8_launches = K8.kbest.launches
     bers = [float(b) for b in res.bers]
     desired = np.array([1.7e-1, 1e-1, 2.5e-3])
     steps = res.rounds * len(snrs)
@@ -2244,16 +2280,43 @@ def idd_path(torch, report):
     yv, hv, nv, a0 = link.receive(bits, noise,
                                   float(link.noise_std_fn(18.0)), h)
     prior = a0.reshape(yv.shape[0], -1)
+    const = M.qam_constellation(16).astype(np.complex64)
+    # K8 by the link's route against the plain search on the card: the
+    # loop's priors (the first pass's clipped LLRs), zero priors, none
+    parity, compared = {}, 0
+    for name, la in (("priors", prior), ("zero_priors",
+                                         torch.zeros_like(prior)),
+                     ("no_priors", None)):
+        got = kbest_device(yv, hv, const, 16, nv, "soft", 4, a_priori=la,
+                           llr_clip=50.0)
+        want = MI._kbest_plain(yv, hv, const, 16, nv, "soft", 4, la, 50.0)
+        if got.shape != want.shape:
+            fail(f"Path N: K8 gave LLRs {tuple(got.shape)}, the plain "
+                 f"search {tuple(want.shape)}")
+        parity[name] = int((got != want).sum())
+        compared += got.numel()
+    r, yt = MI._chol_qr_batched(hv, yv)
     detect_ms = cuda_ms(torch, lambda: ex["detector"](yv, hv, nv, prior), 3)
+    k8_ms = cuda_ms(torch, lambda: K8.kbest(r, yt, const, 16, True, prior,
+                                            nv, 50.0), 10)
+    k8_device_ms = device_ms(torch, lambda: K8.kbest(
+        r, yt, const, 16, True, prior, nv, 50.0), 10, "kbest_kernel")
+    tri_ms = cuda_ms(torch, lambda: MI._chol_qr_batched(hv, yv), 3)
+    plain_ms = cuda_ms(torch, lambda: MI._kbest_plain(
+        yv, hv, const, 16, nv, "soft", 4, prior, 50.0), 2)
     bound = kbest_bound(F * 90, 4, 4, 16, 16, 4)
     out = {"bers": bers, "snrs_db": snrs, "reference": desired.tolist(),
            "bits_sent": float(res.bits_sent[0]), "steps": steps,
            "launches": launches, "kbest_vectors": vectors,
+           "k8_launches": k8_launches, "k8_mismatches_f4096": parity,
+           "k8_compared_f4096": compared,
            "k4_on_loop_llrs": {"mismatches": tally.mismatches,
                                "cases": tally.cases,
                                "compared": tally.compared},
            "detect_pass_f4096": {
-               "ms": detect_ms, "bound": bound,
+               "ms": detect_ms, "k8_ms": k8_ms, "k8_device_ms": k8_device_ms,
+               "triangularisation_ms": tri_ms, "plain_ms": plain_ms,
+               "bound": bound,
                "bound_ms": kbest_bound_s(F * 90, 4, 4, 16, 16, 4) * 1e3,
                "bound_by": ("bytes" if bound[0] / HBM_BYTES_PER_S >=
                             bound[1] / F32_INSTR_PER_S else "operations")}}
@@ -2263,9 +2326,13 @@ def idd_path(torch, report):
           f"most 1.5x); qc_bp_resident launches {launches} and K-best "
           f"vectors {vectors} in {steps} steps; K4 on the loop's decoder "
           f"and decision LLRs: {tally.mismatches} mismatches in "
-          f"{tally.cases} cases, {tally.compared} decisions; one K-best "
-          f"pass at F={F} ({F * 90} vectors, priors on): {detect_ms:.4f} ms, "
-          f"bound {d['bound_ms']:.4f} ms ({d['bound_by']})", flush=True)
+          f"{tally.cases} cases, {tally.compared} decisions; K8 launches "
+          f"{k8_launches}; one K-best pass at F={F} ({F * 90} vectors, "
+          f"priors on): {detect_ms:.4f} ms (K8 {k8_ms:.4f} ms, device "
+          f"{ms_str(k8_device_ms)}; triangularisation {tri_ms:.4f} ms; plain "
+          f"search {plain_ms:.2f} ms), bound {d['bound_ms']:.4f} ms "
+          f"({d['bound_by']}); K8 against the plain search, LLRs that "
+          f"differ: {parity} of {compared}", flush=True)
     if not (np.all(np.abs(np.array(bers) - desired) <= 2 * desired)
             and np.all(np.array(bers) <= 1.5 * desired)):
         fail(f"Path N BER {bers} is off the reference curve")
@@ -2278,8 +2345,14 @@ def idd_path(torch, report):
     if tally.mismatches or len(seen) != 2:
         fail(f"Path N: K4 disagrees with its plain version on the loop's "
              f"LLRs ({tally.mismatches} of {tally.compared})")
+    if k8_launches != 2 * steps:
+        fail(f"Path N launched K8 {k8_launches} times in {steps} steps, not "
+             "twice a step")
+    if any(parity.values()):
+        fail(f"Path N: K8 disagrees with the plain search at F={F}: "
+             f"{parity} LLRs differ")
     report["path_n"] = out
-    return {"qc_bp_resident": {"N": launches}}
+    return {"qc_bp_resident": {"N": launches}, "kbest": {"N": k8_launches}}
 
 
 def api_path(torch, report):
@@ -3773,7 +3846,7 @@ def main():
         "qc_bp_streamed": {"B": launches_b},
         "bcjr_appdiff": dict({"C": launches_c},
                              **lte_launches["bcjr_appdiff"]),
-        "demap_joint": k6w.launches}
+        "demap_joint": k6w.launches, "kbest": {}}
 
     def add_launches(counts):
         for name, paths in counts.items():
@@ -4311,6 +4384,28 @@ def main():
         "redesigned": True,
         "shape": "(1024, 512 + CRC11) SCL-8, F=4096 (a step of "
                  "polar1024.waterfall5)"})
+    kn = report["path_n"]
+    d = kn["detect_pass_f4096"]
+    kernels.append({
+        "name": "kbest", "route": "cuda", "source": KBEST_SOURCE,
+        "replaces": None,
+        "replaces_note": "no TPU kernel: the JAX package searches in plain "
+        "XLA, sorts and gathers (commpy_tpu/ops/mimo.py)",
+        "launches": sum(path_launches["kbest"].values()),
+        "path_launches": path_launches["kbest"],
+        "mismatches": sum(kn["k8_mismatches_f4096"].values()),
+        "compared": kn["k8_compared_f4096"],
+        "ms": d["k8_ms"], "kernel_ms": d["k8_ms"],
+        "device_ms": d["k8_device_ms"], "ms_note": MS_NOTE,
+        "plain_ms": d["plain_ms"], "pass_ms": d["ms"],
+        "triangularisation_ms": d["triangularisation_ms"],
+        "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+        "bound_note": "bound_ms counts the whole pass (the "
+        "triangularisation too); pass_ms is the plain triangularisation "
+        "and K8",
+        "library_ms": None, "redesigned": False,
+        "shape": "4x4 16-QAM K=16 soft, priors and the +-50 clip, 368,640 "
+                 "vectors (a pass of mimo4x4-idd.waterfall5)"})
     report["kernels"] = kernels
     lap("timing")
     report["phase_s"] = phase_s

@@ -6,8 +6,10 @@ commpy/modulation.py:299-646):
 * ``mimo_ml`` — an index-arithmetic candidate grid in the reference's
   repeat/tile order and one argmin over the batch;
 * ``kbest`` — Schnorr-Euchner K-best with per-level candidate counts
-  fixed by the shapes, so every level is expand -> score -> stable sort
-  -> gather over the whole batch;
+  fixed by the shapes: on the card one launch of K8
+  (``kernels/kbest.py``) after the triangularisation; in plain PyTorch
+  every level is expand -> score -> stable sort -> gather over the whole
+  batch;
 * ``best_first_detector`` / ``best_first_device`` — the priority-stack
   tree search as a host search, and a batched fixed-budget variant (per
   level beam widths, counter-hypothesis LLRs);
@@ -27,6 +29,7 @@ from bisect import insort
 import numpy as np
 import torch
 
+from ..kernels import kbest as K8
 from ..utils.bits import unpack_bits
 from ..utils.device import device_constant, on_device
 from ..utils.linalg import small_matmul
@@ -114,6 +117,13 @@ def kbest_device(y, h, constellation, K: int, noise_var=0.0,
 
     ``llr_clip`` (soft only): clip the output LLRs to ``+-llr_clip``.
 
+    Route: on a CUDA tensor whose shape :func:`kbest_plan
+    <commpy_tpu_torch.kernels.kbest.kbest_plan>` takes, the plain
+    triangularisation, then one launch of K8 (``kernels/kbest.py``) for
+    the search and the output, bit for bit with the plain search; CPU
+    tensors and the calls the plan refuses (for a reason it states) take
+    the plain search, :func:`_kbest_plain`.
+
     Counter: ``kbest_device.vectors``, the vectors ``B`` of every call,
     always on (a host int; reset it by assigning 0).
     """
@@ -127,12 +137,36 @@ def kbest_device(y, h, constellation, K: int, noise_var=0.0,
     const = np.asarray(constellation)
     nt = h.shape[-1]
     m = int(const.shape[0])
+    if a_priori is not None and output_type != "soft":
+        raise ValueError("a_priori requires output_type='soft'")
+    if output_type not in ("hard", "soft"):
+        raise ValueError('output_type must be "hard" or "soft"')
+    if bits_per_symbol is None:
+        bits_per_symbol = int(np.log2(m))
+    soft = output_type == "soft"
+    if (y.device.type == "cuda" and K8.kbest_plan(
+            nt, m, K, bits_per_symbol, soft, noise_var)["reason"] is None):
+        r, yt = _chol_qr_batched(h.to(torch.complex64),
+                                 y.to(torch.complex64))
+        la = None
+        if a_priori is not None:
+            la = on_device(a_priori, y.device).to(torch.float32).reshape(
+                y.shape[0], nt * bits_per_symbol).contiguous()
+        return K8.kbest(r, yt, const, int(K), soft, la, noise_var, llr_clip)
+    return _kbest_plain(y, h, const, K, noise_var, output_type,
+                        bits_per_symbol, a_priori, llr_clip)
+
+
+def _kbest_plain(y, h, const, K: int, noise_var, output_type: str,
+                 bits_per_symbol: int, a_priori=None, llr_clip=None):
+    """K-best detection in plain PyTorch: :func:`kbest_device`'s search
+    on CPU tensors and K8's plain version (its arguments as
+    :func:`kbest_device`'s, on one device, ``const`` a NumPy array and
+    ``bits_per_symbol`` given)."""
+    nt = h.shape[-1]
+    m = int(const.shape[0])
     level_bias = None
     if a_priori is not None:
-        if output_type != "soft":
-            raise ValueError("a_priori requires output_type='soft'")
-        if bits_per_symbol is None:
-            bits_per_symbol = int(np.log2(m))
         # sgn[j, b] = 1 - 2*bit_b(j), MSB first (the soft output's order)
         j_idx = np.arange(m)[:, None]
         b_idx = np.arange(bits_per_symbol)[None, :]
@@ -150,14 +184,10 @@ def kbest_device(y, h, constellation, K: int, noise_var=0.0,
                                         level_bias=level_bias)
     if output_type == "hard":
         return X[:, :, 0]
-    elif output_type == "soft":
-        if bits_per_symbol is None:
-            bits_per_symbol = int(np.log2(m))
-        llrs = _max_log_llrs_batched(idx, mets, bits_per_symbol, noise_var)
-        if llr_clip is not None:
-            llrs = torch.clamp(llrs, -float(llr_clip), float(llr_clip))
-        return llrs
-    raise ValueError('output_type must be "hard" or "soft"')
+    llrs = _max_log_llrs_batched(idx, mets, bits_per_symbol, noise_var)
+    if llr_clip is not None:
+        llrs = torch.clamp(llrs, -float(llr_clip), float(llr_clip))
+    return llrs
 
 
 kbest_device.vectors = 0
